@@ -1,0 +1,28 @@
+"""Chipmink core over torch state: delta-identified incremental
+persistence (the paper's contribution).
+
+Public API:
+    Chipmink          — save(state)->TimeID / load(names, time_id), plus
+                        branch / tag / log (mechanism in repro_torch.version)
+    LGA, BundleAll, SplitAll, RandomPolicy, TbH, lga0, lga1
+    build_graph, pod_graph
+    MemoryStore, FileStore
+    RetryPolicy       — transient-error retry policy of the write path
+"""
+from .graph import ObjectGraph, build_graph, chunk_grid, rebuild_tree
+from .async_saver import AsyncSaveError, AsyncSaver
+from .checkpoint import Chipmink, TimeID, reflow
+from .delta import (DeltaPolicy, apply_pod_delta, encode_pod_delta,
+                    parse_delta)
+from .faults import RetryPolicy, call_with_retries
+from .graph_cache import GraphCache, IncrementalBuildInfo
+from .lga import (BUNDLE, SPLIT_CONTINUE, SPLIT_FINAL, BundleAll, LGA,
+                  PoddingPolicy, RandomPolicy, SplitAll, TbH, expected_cost,
+                  lga0, lga1)
+from .memo import CROSS_POD_OFFSET, GlobalMemoSpace
+from .podding import PodAssignment, Unpodder, pod_graph, serialize_pod
+from .store import BaseStore, FileStore, MemoryStore
+from .thesaurus import PodThesaurus
+from .volatility import (ConstantVolatility, FlipTracker, GBMVolatility,
+                         PriorVolatility, VolatilityModel)
+from .active_filter import ActiveVariableFilter
