@@ -9,9 +9,11 @@ Phases (each raises on failure; the script then exits non-zero):
      from `src/repro_torch/csrc/` with nvcc and print the build time and
      the ptxas report.
   1. Hold both kernels against their plain PyTorch versions on the card,
-     bit-exact, on a sweep of (C, W) shapes and on every bucket shape of
-     phase 2; time K1 (fused digest-and-compare) and its plain version at
-     those bucket shapes.
+     bit-exact, on a sweep of (C, W) shapes (W % 4 != 0, all-0xFFFFFFFF
+     words, and views whose rows start 4, 8 or 12 bytes past a 16-byte
+     boundary among them) and on every bucket shape of phase 2; time K1
+     (fused digest-and-compare) and its plain version at those bucket
+     shapes, and K2 in turns with K1 there.
   2. The main path at full width: `Chipmink(MemoryStore(), device="cuda")`
      with all defaults saves a Qwen1.5-0.5B AdamW training state (random
      values from --seed; 4.64 GB on the card at 24 layers): one bootstrap
@@ -25,7 +27,10 @@ Phases (each raises on failure; the script then exits non-zero):
      same manifests (minus `stats`) and pods as `fused=True`.  These rungs
      are K2's (the digest alone) path: its inputs of one save of each rung
      (the bucket matrices, and each leaf's chunk rows) are rebuilt from
-     the state, held against the plain version bit-exact, and timed.
+     the state, held against the plain version bit-exact, and timed per
+     save by CUDA events; torch.profiler's kernel records give K2's device
+     time per launch and its share of the byte bound for each distinct
+     shape, apart from the host's cost of launching it.
   4. A `FileStore` round trip at 2 layers, reopened by a fresh instance.
   5. Numbers: per-save stage times, per-kernel times against their bound.
 
@@ -266,9 +271,11 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def phase_kernels(shapes, timed_shapes, gen, device):
-    """Both kernels vs their plain versions, bit-exact on `shapes`; K1
-    and its plain version timed at `timed_shapes` (the main path's
-    buckets).  Returns (max abs error per kernel, K1's numbers)."""
+    """Both kernels vs their plain versions, bit-exact on `shapes`, each
+    (C, W, offset): the words are a view that starts `offset` words into a
+    fresh tensor, so its rows start 4 * offset bytes past a 16-byte
+    boundary.  K1 and its plain version timed at `timed_shapes` (the main
+    path's buckets).  Returns (max abs error per kernel, K1's numbers)."""
     from repro_torch.kernels import fingerprint as fp
     from repro_torch.kernels import ref
     err = {"fingerprint": 0, "fingerprint_cmp": 0}
@@ -276,10 +283,14 @@ def phase_kernels(shapes, timed_shapes, gen, device):
     k2_ms = 0.0                 # K2 at these shapes, for comparison only
     bound = Bound()
     lo, hi = torch.iinfo(torch.int32).min, torch.iinfo(torch.int32).max
-    for C, W in shapes:
-        words = torch.randint(lo, hi, (C, W), generator=gen, device=device,
-                              dtype=torch.int32)
-        if (C, W) == (3, 4096):
+    for C, W, offset in shapes:
+        words = torch.randint(lo, hi, (C * W + offset,), generator=gen,
+                              device=device, dtype=torch.int32)
+        words = words[offset:].view(C, W)
+        if words.data_ptr() % 16 != 4 * offset:
+            raise AssertionError(f"view at offset {offset} is not "
+                                 f"{4 * offset} bytes past 16")
+        if (C, W) == (3, 4096) and not offset:
             words.fill_(-1)          # all-0xFFFFFFFF: the int64 overflow edge
         lengths = torch.randint(0, 4 * W + 1, (C,), generator=gen,
                                 device=device, dtype=torch.int32)
@@ -292,6 +303,7 @@ def phase_kernels(shapes, timed_shapes, gen, device):
         pd, pm = ref.fingerprint_words_cmp_ref(words, lengths, prev,
                                                seed=C + W)
         torch.cuda.synchronize()
+        where = f"(C, W) = ({C}, {W}), rows {4 * offset} bytes past 16"
         for name, got, want in (("fingerprint", d2, plain),
                                 ("fingerprint_cmp", d1, pd),
                                 ("fingerprint_cmp", m1, pm)):
@@ -299,10 +311,10 @@ def phase_kernels(shapes, timed_shapes, gen, device):
             err[name] = max(err[name], diff)
             if diff:
                 raise AssertionError(f"{name} differs from its plain version "
-                                     f"at (C, W) = ({C}, {W})")
+                                     f"at {where}")
         if not torch.equal(pm, flip.to(torch.int32)):
-            raise AssertionError(f"dirty flags wrong at ({C}, {W})")
-        if (C, W) in timed_shapes:
+            raise AssertionError(f"dirty flags wrong at {where}")
+        if (C, W) in timed_shapes and not offset:
             iters = max(3, min(200, int(2e9 // max(C * W * 4, 1))))
             runs = (lambda: fp.fingerprint_words_cmp(words, lengths, prev),
                     lambda: fp.fingerprint_words(words, lengths))
@@ -316,12 +328,13 @@ def phase_kernels(shapes, timed_shapes, gen, device):
             k1["plain_ms"] += cuda_ms(
                 lambda: ref.fingerprint_words_cmp_ref(words, lengths, prev), 2)
             bound.add(C, W, compare=True)
-        log(f"[kernels] (C, W) = ({C}, {W}): K1 and K2 bit-exact with their "
-            f"plain versions")
+        log(f"[kernels] {where}: K1 and K2 bit-exact with their plain "
+            f"versions")
         del words, lengths, plain, prev, d1, d2, m1, pd, pm
     k1.update(bound_ms=bound.ms, bound_by=bound.by)
-    log(f"[kernels] at the main path's buckets: K1 {k1['ms']:.4f} ms, K2 "
-        f"(which that path does not run) {k2_ms:.4f} ms")
+    log(f"[kernels] at the main path's buckets, in turns: K1 {k1['ms']:.4f} "
+        f"ms, K2 (which that path does not run) {k2_ms:.4f} ms, bound "
+        f"{bound.ms:.4f} ms")
     return err, k1
 
 
@@ -500,6 +513,7 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
     out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0)
     bound = Bound()
     for rung, ins in inputs.items():
+        rung_bound = Bound()
         for words, lengths in ins:
             diff = max_abs_diff(fp.fingerprint_words(words, lengths),
                                 ref.fingerprint_words_ref(words, lengths))
@@ -508,6 +522,7 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
                     f"fingerprint differs from its plain version on the "
                     f"{rung} rung at {tuple(words.shape)}")
             bound.add(*words.shape, compare=False)
+            rung_bound.add(*words.shape, compare=False)
         ms = cuda_ms(lambda: [fp.fingerprint_words(w, n) for w, n in ins], 20)
         plain = cuda_ms(
             lambda: [ref.fingerprint_words_ref(w, n) for w, n in ins], 2)
@@ -515,10 +530,69 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
         out["plain_ms"] += plain
         log(f"[rungs] K2 on the {rung} rung's {len(ins)} inputs per save "
             f"{sorted({tuple(w.shape) for w, _ in ins})}: bit-exact with "
-            f"the plain version; {ms:.4f} ms per save (plain {plain:.4f} "
-            f"ms)")
+            f"the plain version; {ms:.4f} ms per save by CUDA events "
+            f"(plain {plain:.4f} ms), bound {rung_bound.ms:.4f} ms "
+            f"({100 * rung_bound.ms / ms:.1f}% of it)")
+        device_us = 0.0
+        for shape, t in k2_device_times(ins).items():
+            per_launch = t["kernel_us"] + t["memset_us"]
+            device_us += t["n"] * per_launch
+            one = Bound()
+            one.add(*shape, compare=False)
+            log(f"[rungs]   {shape} x{t['n']} per save: device "
+                f"{per_launch:.3f} us per launch (kernel "
+                f"{t['kernel_us']:.3f} + memset {t['memset_us']:.3f}), "
+                f"bound {one.ms * 1e3:.3f} us ({one.by}), "
+                f"{100 * one.ms * 1e3 / per_launch:.1f}% of it")
+        log(f"[rungs] K2 on the {rung} rung: device time {device_us / 1e3:.4f}"
+            f" ms per save by torch.profiler, bound {rung_bound.ms:.4f} ms; "
+            f"the rest of the {ms:.4f} ms is the host launching it")
     out.update(bound_ms=bound.ms, bound_by=bound.by)
     return out
+
+
+def k2_device_times(ins) -> dict:
+    """K2's device time per launch for each distinct (C, W) of `ins`, from
+    torch.profiler's records of its kernel (`digest_kernel`) and of the
+    memset that zeroes the digests of a launch cut into several segments,
+    each averaged over the records the profiler kept (it may drop the
+    first record of a profiling window): {shape: dict(n=inputs of that shape, kernel_us=,
+    memset_us=)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fingerprint as fp
+    by_shape = {}
+    for words, lengths in ins:
+        by_shape.setdefault(tuple(words.shape), []).append((words, lengths))
+    times = {}
+    for shape, group in by_shape.items():
+        reps = max(3, 24 // len(group))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for words, lengths in group:
+                    fp.fingerprint_words(words, lengths)
+            torch.cuda.synchronize()
+        total = {"digest_kernel": 0.0, "Memset": 0.0}
+        count = {"digest_kernel": 0, "Memset": 0}
+        for e in prof.key_averages():
+            for name in total:
+                if e.device_type == DeviceType.CUDA and name in e.key:
+                    total[name] += e.self_device_time_total
+                    count[name] += e.count
+        n = reps * len(group)
+        split = fp.digest_plan(*shape)[1] > 1
+        if not (n - 1 <= count["digest_kernel"] <= n
+                and (n - 1 <= count["Memset"] <= n if split
+                     else count["Memset"] == 0)):
+            raise AssertionError(f"profiler saw {count} at {shape}; {n} "
+                                 f"launches were made")
+        times[shape] = dict(
+            n=len(group),
+            kernel_us=total["digest_kernel"] / count["digest_kernel"],
+            memset_us=total["Memset"] / max(count["Memset"], 1))
+    return times
 
 
 def phase_filestore(cfg: dict, gen: torch.Generator, device) -> None:
@@ -571,9 +645,13 @@ def main(argv=None) -> int:
     chunk_bytes = 1 << 22
     main_shapes = bucket_shapes(cfg, chunk_bytes)
     small = dict(cfg, layers=2)
-    sweep = [(1, 1), (3, 4096), (2, 5000), (7, 1), (64, 128), (64, 4096),
-             (1, 1 << 20), (64, 1 << 20)]
-    shapes = sweep + [s for s in main_shapes if s not in sweep]
+    sweep = [(1, 1, 0), (3, 4096, 0), (2, 5000, 0), (7, 1, 0), (64, 128, 0),
+             (64, 4096, 0), (1, 1 << 20, 0), (64, 1 << 20, 0), (1, 3, 0),
+             (2, 5, 0), (3, 4099, 0), (3, 1 << 20, 0), (149, 1 << 20, 0),
+             (70000, 128, 0), (1, 1 << 20, 1), (3, 4096, 2), (5, 1 << 16, 3),
+             (9, 4099, 3), (2, 7, 1), (1, 2, 1)]
+    shapes = sweep + [(C, W, 0) for C, W in main_shapes
+                      if (C, W, 0) not in sweep]
     err, k1 = phase_kernels(shapes, set(main_shapes), gen, device)
     log(f"[kernels] main-path bucket shapes {main_shapes}")
 

@@ -3,14 +3,16 @@
 The digest (ref.py) is computed on the device, so only 16 bytes per
 chunk, a dirty flag and the speculated dirty rows ever cross to the host
 (the single-sync save contract, see batch.py).  Two kernels, one CUDA
-source (`csrc/fingerprint.cu`, one template):
+source (`csrc/fingerprint.cu`):
 
-  * `fingerprint_words_cmp` — fused digest-and-compare: digests every row
-    and compares it with the previous save's digest row on the device,
-    emitting a per-row dirty flag.  Runs once per bucket on every default
-    (``fused=True``) save.
-  * `fingerprint_words` — the digest alone, for the ``fused=False`` and
-    ``batched=False`` rungs.
+  * `fingerprint_words_cmp` — K1, fused digest-and-compare: digests every
+    row and compares it with the previous save's digest row on the
+    device, emitting a per-row dirty flag.  Runs once per bucket on every
+    default (``fused=True``) save.  One block per row.
+  * `fingerprint_words` — K2, the digest alone, for the ``fused=False``
+    and ``batched=False`` rungs.  Its launch splits each row's width into
+    segments and gives each block R rows (`digest_plan`), so a launch of
+    few long rows fills the card.
 
 Each wrapper checks device, dtype (int32 bit patterns), shape and
 contiguity and raises on anything else.  A CUDA tensor launches the
@@ -80,15 +82,44 @@ def build_library() -> Tuple[Path, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    lib_path, _ = build_library()
-    fn = ctypes.CDLL(str(lib_path)).fingerprint_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    """The built library with both launchers' ctypes signatures set."""
+    lib = ctypes.CDLL(str(build_library()[0]))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.fingerprint_cmp_launch.argtypes = [p, i64, i64, p, p, p, p,
+                                           ctypes.c_uint32, p]
+    lib.fingerprint_launch.argtypes = [p, i64, i64, p, p, ctypes.c_uint32,
+                                       ctypes.c_int, i64, i64, p]
+    lib.fingerprint_cmp_launch.restype = ctypes.c_int
+    lib.fingerprint_launch.restype = ctypes.c_int
+    return lib
+
+
+#: threads per K2 block (kThreads in csrc/fingerprint.cu)
+DIGEST_THREADS = 256
+#: blocks one K2 launch aims for: two waves of four resident blocks on
+#: each of the H100's 132 SMs
+DIGEST_TARGET_BLOCKS = 2 * 4 * 132
+
+
+def digest_plan(C: int, W: int) -> Tuple[int, int, int]:
+    """K2's launch on (C, W) words, C >= 1: (rows per block R, segments
+    per row, 16-byte vectors per segment).
+
+    R is the largest power of two up to min(C, 8), or 1 when W % 4 != 0
+    (rows then start at different offsets from a 16-byte boundary and
+    cannot share weights).  A row's body of up to W // 4 vectors is cut
+    into segments of whole steps (DIGEST_THREADS * U vectors, U = 4 loads
+    per thread for R <= 4 and 2 for R = 8) until ceil(C / R) row groups
+    times the segments reach DIGEST_TARGET_BLOCKS; a launch with that
+    many row groups already is not cut.  The grid is ceil(C / R) *
+    segments blocks, at most max(ceil(C / R), 2 * DIGEST_TARGET_BLOCKS)."""
+    R = 1 if W % 4 else 1 << (min(C, 8).bit_length() - 1)
+    step = DIGEST_THREADS * (4 if R <= 4 else 2)
+    nvec = W // 4
+    n_seg = max(1, min(-(-DIGEST_TARGET_BLOCKS // -(-C // R)), nvec // step))
+    seg_vecs = step * max(1, -(-nvec // (n_seg * step)))
+    return R, max(1, -(-nvec // seg_vecs)), seg_vecs
 
 
 def _check(words: torch.Tensor, lengths: torch.Tensor,
@@ -116,20 +147,10 @@ def _check(words: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"no fingerprint kernel for device {words.device}")
 
 
-def _launch(words: torch.Tensor, lengths: torch.Tensor,
-            prev: Optional[torch.Tensor], out: torch.Tensor,
-            dirty: Optional[torch.Tensor], seed: int) -> None:
-    C, W = words.shape
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = _launcher()(
-            words.data_ptr(), C, W, lengths.data_ptr(),
-            prev.data_ptr() if prev is not None else None, out.data_ptr(),
-            dirty.data_ptr() if dirty is not None else None,
-            seed & MASK32, int(prev is not None), stream)
+def _raise_on(err: int, name: str, words: torch.Tensor) -> None:
     if err != 0:
-        raise RuntimeError(f"fingerprint kernel launch failed: CUDA error "
-                           f"{err} at (C, W) = ({C}, {W})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} at "
+                           f"(C, W) = {tuple(words.shape)}")
 
 
 def fingerprint_words(words: torch.Tensor, lengths: torch.Tensor, *,
@@ -139,10 +160,17 @@ def fingerprint_words(words: torch.Tensor, lengths: torch.Tensor, *,
     _check(words, lengths)
     if words.device.type == "cpu":
         return fingerprint_words_ref(words, lengths, seed=seed)
-    out = torch.empty((words.shape[0], DIGEST_WORDS), dtype=torch.int32,
+    C, W = words.shape
+    out = torch.empty((C, DIGEST_WORDS), dtype=torch.int32,
                       device=words.device)
-    if words.shape[0]:
-        _launch(words, lengths, None, out, None, seed)
+    if C:
+        R, n_seg, seg_vecs = digest_plan(C, W)
+        with torch.cuda.device(words.device):
+            stream = torch.cuda.current_stream(words.device).cuda_stream
+            err = _library().fingerprint_launch(
+                words.data_ptr(), C, W, lengths.data_ptr(), out.data_ptr(),
+                seed & MASK32, R, n_seg, seg_vecs, stream)
+        _raise_on(err, "fingerprint", words)
         launches["fingerprint"] += 1
     return out
 
@@ -164,6 +192,12 @@ def fingerprint_words_cmp(words: torch.Tensor, lengths: torch.Tensor,
                       device=words.device)
     dirty = torch.empty((C,), dtype=torch.int32, device=words.device)
     if C:
-        _launch(words, lengths, prev, out, dirty, seed)
+        with torch.cuda.device(words.device):
+            stream = torch.cuda.current_stream(words.device).cuda_stream
+            err = _library().fingerprint_cmp_launch(
+                words.data_ptr(), C, words.shape[1], lengths.data_ptr(),
+                prev.data_ptr(), out.data_ptr(), dirty.data_ptr(),
+                seed & MASK32, stream)
+        _raise_on(err, "fingerprint_cmp", words)
         launches["fingerprint_cmp"] += 1
     return out, dirty

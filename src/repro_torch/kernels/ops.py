@@ -95,12 +95,14 @@ def to_words(arr: torch.Tensor) -> torch.Tensor:
     """Bitcast a tensor of any dtype to a flat int32 word stream holding
     its little-endian bytes (the reference's uint32 words, as bit
     patterns).  Trailing bytes are zero-padded (the digest folds true
-    lengths separately)."""
+    lengths separately).  A view whose bytes start off a 4-byte boundary
+    (a 1-byte or 2-byte slice such as ``t[1:]``) is copied, since int32
+    words cannot view it."""
     if arr.dtype == torch.bool:
         arr = arr.to(torch.uint8)
     b = arr.contiguous().reshape(-1).view(torch.uint8)
     pad = (-b.numel()) % 4
-    if pad:
+    if pad or b.storage_offset() % 4:
         b = torch.cat([b, b.new_zeros(pad)])
     return b.view(torch.int32)
 

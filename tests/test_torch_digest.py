@@ -181,7 +181,138 @@ def test_dtype_names_are_the_reference_names():
             2 if dt == "bfloat16" else np.dtype(dt).itemsize)
 
 
-@pytest.mark.parametrize("C,W", SWEEP + [(64, 128), (64, 1 << 20)])
+def _segments(W, head, n_seg, seg_vecs):
+    """Word ranges each segment of one K2 row digests, as
+    `csrc/fingerprint.cu` cuts the row: `head` scalar words up to the
+    first 16-byte boundary, then 16-byte vectors, of which segment s owns
+    [s * seg_vecs, (s + 1) * seg_vecs); segment 0 also owns the head and
+    the scalar tail after the last whole vector."""
+    head = min(head, W)
+    nvec = (W - head) // 4
+    tail = head + 4 * nvec
+    segs = []
+    for s in range(n_seg):
+        lo, hi = min(s * seg_vecs, nvec), min((s + 1) * seg_vecs, nvec)
+        segs.append([(head + 4 * lo, head + 4 * hi)]
+                    + ([(0, head), (tail, W)] if s == 0 else []))
+    return segs
+
+
+PLANS = [(1, 1), (1, 3), (2, 5), (3, 4099), (1, 9000), (1, 9001), (2, 9002),
+         (3, 9003), (64, 128), (1, 1 << 20), (3, 1 << 20), (149, 1 << 20),
+         (512, 1 << 20), (70000, 128), (1 << 22, 1 << 20), (1 << 22, 1),
+         (1 << 22, 4099)]
+
+
+@pytest.mark.parametrize("C,W", PLANS)
+def test_digest_plan_segments_tile_each_row(C, W):
+    R, n_seg, seg_vecs = tfp.digest_plan(C, W)
+    assert R in (1, 2, 4, 8) and R <= max(C, 1)
+    assert R == 1 or W % 4 == 0          # rows of a block share alignment
+    assert n_seg * seg_vecs >= W // 4    # the launcher's coverage check
+    groups = -(-C // R)
+    grid = groups * n_seg
+    assert grid <= max(groups, 2 * tfp.DIGEST_TARGET_BLOCKS) < 2**31
+    for head in range(4):                # the row's words before 16 bytes
+        count = np.zeros(W, np.int64)
+        for seg in _segments(W, head, n_seg, seg_vecs):
+            for lo, hi in seg:
+                count[lo:hi] += 1
+        assert (count == 1).all()        # segments tile [0, W) exactly
+
+
+# (C, W, head, cuts): cuts None takes the segments of digest_plan(C, W)
+# for a row whose first `head` words precede a 16-byte boundary; otherwise
+# the segments are [cuts[k], cuts[k + 1]).  W % 4 in {0, 1, 2, 3}, unequal
+# segments, and boundaries off 16-byte boundaries.
+SPLITS = [(1, 9000, 0, None), (1, 9001, 1, None), (2, 9002, 2, None),
+          (3, 9003, 3, None), (2, 9000, 3, None), (2, 13, 0, [0, 5, 6, 13]),
+          (3, 4099, 0, [0, 1, 1000, 4098, 4099]),
+          (1, 4098, 0, [0, 2047, 2048, 4098]),
+          (4, 4096, 0, [0, 3, 1027, 4096])]
+
+
+@pytest.mark.parametrize("C,W,head,cuts", SPLITS)
+def test_split_partials_sum_to_digest(C, W, head, cuts):
+    """Partial sums over any split of [0, W), each mod 2^32, plus the
+    length folds give the digest: the arithmetic K2's split-W relies on."""
+    words, lens = _case(C, W, C * 7 + W)
+    if cuts is None:
+        segs = _segments(W, head, *tfp.digest_plan(C, W)[1:])
+        assert len(segs) > 1
+    else:
+        segs = [[(a, b)] for a, b in zip(cuts, cuts[1:])]
+    weights = tref.lane_weights(W, 11, "cpu").numpy().astype(np.uint32)
+    total = np.zeros((C, 4), np.uint32)
+    with np.errstate(over="ignore"):
+        for seg in segs:
+            part = np.zeros((C, 4), np.uint32)
+            for lo, hi in seg:
+                for d in range(4):
+                    part[:, d] += (words[:, lo:hi] * weights[d, lo:hi]).sum(
+                        axis=1, dtype=np.uint32)
+            total += part
+        total += tref.length_folds(_t(lens), 11).numpy().astype(np.uint32)
+    assert (total == u32(tref.fingerprint_words_ref(_t(words), _t(lens),
+                                                    seed=11))).all()
+    assert (total == np.asarray(rfp.fingerprint_words(
+        jnp.asarray(words), jnp.asarray(lens), seed=11,
+        interpret=True))).all()
+
+
+@pytest.mark.parametrize("dt,n", [("uint8", 9), ("int8", 13), ("bool", 9),
+                                  ("bfloat16", 7), ("float16", 6)])
+def test_to_words_of_views_off_word_boundaries(dt, n):
+    """A 1-byte or 2-byte slice t[1:] starts off a 4-byte boundary: its
+    words are a copy, equal to the reference's."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n) * 50
+    if dt == "bool":
+        x = np.asarray(x > 0)
+    elif dt == "bfloat16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16))
+    else:
+        x = x.astype(dt)
+    view = np_to_torch(x)[1:]
+    assert view.storage_offset() * view.element_size() % 4
+    want = rops.to_words_np(x[1:])
+    assert (u32(tops.to_words(view)) == want).all()
+    words, _ = tops.leaf_words(view, chunk_bytes=8)
+    assert (u32(words).reshape(-1)[:want.size] == want).all()
+
+
+@pytest.mark.parametrize("C,W,offset,fill", [
+    (1, 1 << 20, 1, None), (3, 4096, 2, None), (5, 1 << 16, 3, None),
+    (9, 4099, 3, None), (2, 7, 1, None), (1, 2, 1, None),
+    (3, 1 << 20, 0, 0xFFFFFFFF), (4, 4099, 2, 0xFFFFFFFF)])
+def test_digest_kernel_on_views_and_all_ones_on_card(cuda, C, W, offset,
+                                                      fill):
+    """K2 bit-exact on rows that start `offset` words past a 16-byte
+    boundary (views of a larger tensor: data_ptr() % 16 == 4 * offset)
+    and on all-0xFFFFFFFF words and lengths."""
+    rng = np.random.default_rng(C * W + offset)
+    flat = rng.integers(0, 2**32, size=C * W + 4, dtype=np.uint32)
+    lens = rng.integers(1, W * 4 + 1, size=(C,)).astype(np.uint32)
+    if fill is not None:
+        flat[:] = fill
+        lens[:] = fill
+    big = _t(flat).to(cuda)
+    assert big.data_ptr() % 16 == 0
+    w = big[offset:offset + C * W].view(C, W)
+    assert w.data_ptr() % 16 == 4 * offset
+    ln = _t(lens).to(cuda)
+    got = tfp.fingerprint_words(w, ln, seed=0xFFFFFFFF)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.fingerprint_words_ref(w, ln,
+                                                       seed=0xFFFFFFFF))
+    assert (u32(got.cpu()) == rref.fingerprint_words_np(
+        flat[offset:offset + C * W].reshape(C, W), lens,
+        seed=0xFFFFFFFF)).all()
+
+
+@pytest.mark.parametrize("C,W", SWEEP + [
+    (64, 128), (64, 1 << 20), (1, 3), (2, 5), (3, 4099), (1, 1 << 20),
+    (3, 1 << 20), (149, 1 << 20), (70000, 128)])
 def test_kernels_match_plain_versions_on_card(cuda, C, W):
     words, lens = _case(C, W, C + W)
     w, ln = _t(words).to(cuda), _t(lens).to(cuda)
