@@ -13,10 +13,12 @@ serving loop continues.  Two non-reentrant locks suffice (§6.2):
                    read-only, but must not donate active leaves while a
                    save is in flight.
 
-In this package torch tensors mutate in place, so overlapped saves need a
-device-side snapshot first and ``Chipmink(async_mode=True)`` is refused
-until that lands (ROADMAP); synchronous saves still use ``l_ns``,
-``wait`` and ``drain``.
+Torch tensors mutate in place, so a reference to a leaf is not a
+snapshot of it: `Chipmink.save` copies every tensor leaf on the caller's
+current stream as the ``prepare`` step of its submit, once a pipeline
+slot is free, and the body runs on a side stream that waits for that
+copy (the snapshot rule in ``checkpoint.py``).  This module only
+schedules bodies; it knows nothing of devices.
 
 Double buffering (the departure from the paper's single-flight rule):
 ``submit`` no longer joins the previous save.  Up to ``depth`` saves may
@@ -27,9 +29,9 @@ each such block is counted in ``n_stalls``; a caller whose previous save
 finishes before the next ``save()`` therefore observes zero stalls.
 Save *bodies* still execute strictly FIFO on one worker thread, which is
 what keeps the cross-save state (digest table, previous PodAssignment,
-thesaurus) free of write races; the caller-side snapshot (graph build at
-``save()`` call time) is what makes the overlap sound — see the
-"Incremental save pipeline" contract in ``checkpoint.py``.
+thesaurus) free of write races; the caller-side snapshot (graph build
+and tensor copy at ``save()`` call time) is what makes the overlap
+sound.
 
 Degraded mode: a failed body does not stop the pipeline — later queued
 saves still run (a transient fault should cost one checkpoint, not all
@@ -123,10 +125,16 @@ class AsyncSaver:
             errs, self._errors = self._errors, []
             return errs
 
-    def submit(self, fn: Callable[[], Any]) -> None:
+    def submit(self, fn: Callable[[], Any],
+               prepare: Optional[Callable[[], Any]] = None) -> None:
         """Enqueue `fn` on the podding thread.  Returns immediately while
         fewer than `depth` saves are in flight; otherwise blocks until the
         oldest save retires (backpressure, counted in `n_stalls`).
+
+        `prepare` runs on the caller's thread once a slot is held and
+        before `fn` is enqueued, so what it allocates (the save's
+        snapshot) never lives through a stall.  If it raises, the slot is
+        released and `fn` is not enqueued.
 
         Previously failed saves surface here (as they did when submit
         joined the prior thread): the pending errors re-raise (combined
@@ -144,8 +152,17 @@ class AsyncSaver:
                 self.n_stalls += 1
                 while self._inflight >= self.depth:
                     self._cv.wait()
+            self._inflight += 1           # the slot is held from here on
+        try:
+            if prepare is not None:
+                prepare()
+        except BaseException:
+            with self._cv:
+                self._inflight -= 1
+                self._cv.notify_all()
+            raise
+        with self._cv:
             self._queue.append(fn)
-            self._inflight += 1
             if self._worker is None:
                 self._worker = threading.Thread(
                     target=self._run, name="chipmink-podding", daemon=True)

@@ -199,6 +199,21 @@ class ChangeDetector:
         return kbatch.DigestResult(keys=keys, mat=mat, n_syncs=n_syncs,
                                    leaf_rows=leaf_rows)
 
+    def verify(self, graph: ObjectGraph,
+               speculate: Optional[Set[str]] = None) -> ChangeReport:
+        """Digest every leaf of `graph` against the table and leave the
+        table as it was.  ``dirty`` names the chunks whose bytes changed
+        since the table was taken, ``digests`` are the current ones, and
+        the payload of the `speculate` chunks rides along: the same one
+        fetch a fused save pays.  Checkout uses it to find tensors the
+        caller changed in place since the last save."""
+        kept = (self._table, self._index, self._seen_leaves, self._dev_table)
+        try:
+            return self.detect(graph, None, speculate=speculate)
+        finally:
+            (self._table, self._index, self._seen_leaves,
+             self._dev_table) = kept
+
     # ------------------------------------------------------------------
     def detect(self, graph: ObjectGraph,
                active_leaf_paths: Optional[Set[str]] = None,

@@ -10,9 +10,11 @@ digests → thesaurus lookup (synonyms) → write dirty pods + manifest.
 A load reverses it: manifest → resolve pods (synonyms are content-addressed)
 → unpod only what the requested names reach (partial loading).
 
-Manifests, pods and stores are byte-identical to the reference package's
-(`repro.core.checkpoint`) for the same state: a store written by either
-package loads in the other.
+Manifests, pods, stores and the meta blobs (refs, leases, the TimeID
+counter, the refcount index) are byte-identical to the reference
+package's (`repro.core.checkpoint`) for the same state and the same
+sequence of calls: a store written by either package loads, checks out
+and passes fsck in the other.
 
 Device.  ``Chipmink(..., device="cuda")`` is the default; without a CUDA
 device the constructor raises.  A `torch.Tensor` leaf takes the device
@@ -40,6 +42,43 @@ with the *delta*, mirroring the device half's batched digest engine:
     produce bit-identical pod bytes and manifests (modulo the timing
     stats block).
 
+Asynchronous saves (``async_mode=True``) and the snapshot rule
+--------------------------------------------------------------
+`save()` builds the graph on the caller's thread and hands the rest of
+the save (digest, podding, gather, write) to the podding thread
+(`AsyncSaver`, up to ``async_depth`` saves in flight, bodies strictly
+FIFO).  Torch tensors change in place (``optimizer.step()``, ``add_``,
+``copy_``), so a reference to a leaf is not a snapshot of it.  Before
+`save()` returns, **every tensor leaf is snapshotted**, whatever its
+size: one flat buffer on the instance's device filled by a few launches
+(`kernels.ops.snapshot_tensors`), on the caller's *current stream*, and
+the save's graph then reads only the snapshot's views.  So:
+
+  * an in-place update the caller enqueues on the stream that called
+    `save()` runs after the copy and never reaches the commit; work on
+    another stream must first synchronize with that one;
+  * the body runs under ``torch.cuda.device(device)`` on a dedicated side
+    stream that first waits on an event recorded after the snapshot; the
+    snapshot buffer is marked used by that stream (`record_stream`), so
+    the caching allocator cannot hand its memory out while the body still
+    reads it; `wait()` orders the caller's stream after the side stream;
+  * the caller pays no blocking sync (the snapshot, the event and the
+    submit are all asynchronous); the body pays the save's usual fetches
+    (exactly one on a warm sparse save);
+  * there is no fallback: if the side stream or the snapshot fails,
+    `save()` raises and no body is enqueued.
+
+Per-save stats ``n_snapshot_bytes`` and ``t_snapshot`` (host time to
+enqueue it) record the snapshot.  It is taken once a pipeline slot is
+free (the ``prepare`` step of `AsyncSaver.submit`), so a save that
+stalls on a full pipeline holds no extra copy while it waits.  Host numpy
+leaves follow the reference's copy-on-submit rule: leaves no larger than
+``copy_on_submit_bytes`` (1 MiB default) are copied on the caller's
+thread (``n_leaf_copies``); larger writable ones keep the
+must-not-mutate-before-`wait()` rule, surfaced per ``large_leaf_action``
+(``"warn"`` once per key, ``"raise"``, or ``"ignore"``;
+``copy_on_submit_bytes=0`` disables copies and the guard).
+
 Single-sync save (``fused=True``, default)
 ------------------------------------------
 The device half of a save is one round-trip: the fused digest kernels
@@ -55,43 +94,93 @@ restores the two-sync path (digest fetch + payload gather) and
 ``batched=False`` the per-leaf path; manifests are bit-identical on
 every rung.
 
-Ablation switches (`enable_cd`, `enable_avf`) reproduce the paper's
-§8.8/§8.9 baselines; `incremental=False` restores the from-scratch host
-path.
+Ablation switches (`enable_cd`, `enable_avf`, `async_mode`) reproduce
+the paper's §8.8/§8.9 baselines; `incremental=False` restores the
+from-scratch host path.
 
-Versioning: every save is a *commit* whose manifest records its parent
-(HEAD by default); a commit DAG with branch refs / tags / HEAD persists
-in the store (``branch``, ``tag``, ``log``).
+Delta-chain pod storage (``delta_chains=True``)
+-----------------------------------------------
+When a reuse-path save re-serializes a pod that the detector mask shows
+changed in only a few chunks (or scalars), the pod can be stored as a
+chunk-granular binary delta against its parent-commit pod instead of
+whole (`core/delta.py`).  The patch set comes for free: under
+assignment reuse with no structural change, only CHUNK entries in
+``report.dirty`` and SCALAR entries in ``scalar_changed_keys`` can
+differ from the parent blob, so those entry indices ARE the delta (no
+extra device fetch).  `DeltaPolicy` admits the delta only when its
+bytes plus an expected chain-reconstruction charge beat the whole blob,
+and never past ``max_chain_depth`` links from a whole base.  The
+manifest records the base as ``pods[pid]["delta_of"]``; `get_pod`
+reconstructs the full bytes transparently.  Per-save stats:
+``n_delta_pods``, ``t_delta_encode``, ``chain_depth_max``.  Default off.
 
-Durability: every save is a pods → manifest → refs transaction (refs via
+Versioning
+----------
+Every save is a *commit* whose manifest records its parent (HEAD by
+default) and the save's chunk-digest table (``"chunks"``); a commit DAG
+with branch refs / tags / HEAD persists in the store.  ``branch``,
+``tag``, ``log``, ``diff`` and ``delete_branch`` mirror git;
+``checkout(ref)`` restores a commit delta-aware (store reads scale with
+the branch delta; untouched leaves come back as the live tensor objects,
+shared with the caller's previous state, once one digest pass has shown
+them unchanged since the last save) and primes the pipeline so the
+next save is incremental and single-sync (`version/checkout.py`);
+``gc()`` mark-and-sweeps what no ref reaches and prunes the thesaurus.
+
+Durability & recovery
+---------------------
+Every save is a pods → manifest → refs transaction (refs via
 `BaseStore.compare_and_put_meta`); ``fsck_on_open`` (default True) runs
-the recovery scan before the first save of a reopened store, and
+the recovery scan before the first save of a reopened store
+(``"deep"`` validates every pod's bytes), `fsck()` reruns it, and
 transient `OSError`s in the write phase retry under ``retry_policy``.
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP
-item): ``async_mode=True`` (torch tensors mutate in place, so an
-overlapped save needs a device-side snapshot first), ``multi_writer=True``,
-``delta_chains=True``, ``refcounts=True``, and ``checkout``, ``gc``,
-``evict_branch`` and ``diff``.  The constructor keeps the reference's
-defaults; its options that only configure those modes (lease timing,
-delta policy, copy-on-submit, shared TimeIDs, CAS retry budgets) come
-with them.  ``batched=False`` selects the per-leaf digest rung.
+Multi-writer (``multi_writer=True``)
+------------------------------------
+The instance holds a shared writer lease (`core.lease`; TTL
+``lease_ttl_s``, renewed by a heartbeat thread unless
+``lease_heartbeat=False``, and inline at every save); TimeIDs come from
+a CAS counter meta blob (``TID_COUNTER_META_KEY``); every save
+registers a save intent (TimeID, parent, every manifest digest) before
+any pod byte lands, re-verifies aliased pods after it, and fences the
+refs CAS (`LeaseLost` aborts publication).  ``gc()`` runs under the
+exclusive gc lease with the sweep fence; ``fsck()`` reaps dead writers'
+leases while honoring live peers' intents.  ``close()`` drains the
+pipeline, stops the heartbeat and releases the lease.  ``shared_tids``
+routes TimeIDs through the CAS counter without leases (a pool of
+instances on one store); ``max_refs_cas_retries`` / ``refs_cas_backoff``
+bound the refs CAS loop.
+
+Refcount GC (``refcounts=True``)
+--------------------------------
+A persistent refcount index (`version/refcount.py`, meta key
+``pod_refcounts``) is updated between every manifest put and refs CAS.
+``evict_branch(name)`` deletes a branch and reclaims its exclusive
+commits and pods in O(branch delta), freeing exactly what a full
+mark-and-sweep would; ``gc()`` then drains the backlog of
+`delete_branch` tips the same way and ``gc(full=True)`` forces the
+mark-and-sweep oracle and trues the index up.
 """
 from __future__ import annotations
 
 import hashlib
 import time as _time
+import warnings
 from typing import Any, Dict, Iterable, List, Optional, Set
 
+import msgpack
+import numpy as np
 import torch
 
-from ..kernels.ops import resolve_device
+from ..kernels.ops import resolve_device, snapshot_tensors
 from .active_filter import ActiveVariableFilter
 from .async_saver import AsyncSaver
 from .change_detector import ChangeDetector, pack_digest_table
+from .delta import DeltaPolicy, encode_pod_delta
 from .faults import RetryPolicy, call_with_retries
 from .graph import CHUNK, ObjectGraph, build_graph
 from .graph_cache import GraphCache, IncrementalBuildInfo
+from .lease import Lease, LeaseHeartbeat, LeaseLost, LeaseManager
 from .lga import LGA, PoddingPolicy
 from .podding import (PodAssignment, Unpodder, batched_chunk_fetch,
                       fused_chunk_fetch, open_manifest, pod_graph,
@@ -102,11 +191,9 @@ from .volatility import FlipTracker
 
 TimeID = int
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP queue 1, "
-        f"{item})")
+#: meta blob holding the next unissued TimeID (multi-writer mode only):
+#: a CAS counter, so concurrent writers never mint the same commit id.
+TID_COUNTER_META_KEY = "tid_counter"
 
 
 class Chipmink:
@@ -121,33 +208,38 @@ class Chipmink:
         enable_cd: bool = True,
         enable_avf: bool = True,
         async_mode: bool = False,
+        async_depth: int = 2,
         incremental: bool = True,
         fused: bool = True,
         batched: bool = True,
         spec_threshold: float = 0.25,
         track_flips: bool = True,
+        copy_on_submit_bytes: int = 1 << 20,
         seed: int = 0,
         retry_policy: Optional[RetryPolicy] = None,
         fsck_on_open: Any = True,
         multi_writer: bool = False,
+        lease_ttl_s: float = 10.0,
+        lease_heartbeat: bool = True,
+        max_refs_cas_retries: Optional[int] = None,
+        refs_cas_backoff: Optional[RetryPolicy] = None,
         delta_chains: bool = False,
+        delta_policy: Optional[DeltaPolicy] = None,
         refcounts: bool = False,
+        shared_tids: bool = False,
+        large_leaf_action: str = "warn",
         device: Any = "cuda",
     ) -> None:
-        if async_mode:
-            raise _not_ported("async_mode=True", "async_mode item")
-        if multi_writer:
-            raise _not_ported("multi_writer=True", "multi_writer item")
-        if delta_chains:
-            raise _not_ported("delta_chains=True", "delta_chains item")
-        if refcounts:
-            raise _not_ported("refcounts=True", "version/refcount.py item")
         if torch.device(device).type == "cuda" and \
                 not torch.cuda.is_available():
             raise RuntimeError(
                 "Chipmink(device='cuda') needs a CUDA device and none is "
                 "available; pass device='cpu' to run the kernels' plain "
                 "versions on the CPU")
+        if large_leaf_action not in ("warn", "raise", "ignore"):
+            raise ValueError(
+                f"large_leaf_action must be 'warn', 'raise' or 'ignore', "
+                f"got {large_leaf_action!r}")
         self.device = resolve_device(device)
         self.store = store if store is not None else MemoryStore()
         self.policy = policy if policy is not None else LGA()
@@ -155,6 +247,7 @@ class Chipmink:
         self.memo_page_size = memo_page_size
         self.enable_cd = enable_cd
         self.enable_avf = enable_avf
+        self.async_mode = async_mode
         self.incremental = incremental
         self.detector = ChangeDetector(chunk_bytes=chunk_bytes, seed=seed,
                                        fused=fused, batched=batched,
@@ -164,14 +257,29 @@ class Chipmink:
         self.thesaurus = PodThesaurus(capacity_bytes=thesaurus_capacity)
         self.tracker = FlipTracker() if track_flips else None
         self.avf = ActiveVariableFilter()
-        self.saver = AsyncSaver()
+        self.saver = AsyncSaver(depth=async_depth)
         self._graph_cache = (GraphCache(chunk_bytes=chunk_bytes)
                              if incremental else None)
+        self.copy_on_submit_bytes = copy_on_submit_bytes
+        self.large_leaf_action = large_leaf_action
+        self._large_leaves_warned: Set[str] = set()
+        #: side stream of the async save bodies (CUDA only; made lazily)
+        self._side_stream: Optional[torch.cuda.Stream] = None
         self._prev_pods: Optional[PodAssignment] = None
         self._prev_graph: Optional[ObjectGraph] = None
         self._pod_digests: Dict[int, bytes] = {}   # prev save's pod digests
+        self.delta_chains = delta_chains
+        self.delta_policy = (delta_policy if delta_policy is not None
+                             else DeltaPolicy())
         self.retry_policy = (retry_policy if retry_policy is not None
                              else RetryPolicy())
+        # Multi-writer mode: lease manager + lazily-acquired writer lease.
+        self.leases: Optional[LeaseManager] = (
+            LeaseManager(self.store, ttl_s=lease_ttl_s)
+            if multi_writer else None)
+        self._writer_lease: Optional[Lease] = None
+        self._heartbeat: Optional[LeaseHeartbeat] = None
+        self._lease_heartbeat = lease_heartbeat
         # Recovery scan before anything reads the store: a previous
         # process may have died mid-transaction.  True = quick (existence
         # + non-empty of every referenced pod); "deep" additionally
@@ -180,24 +288,100 @@ class Chipmink:
         if fsck_on_open:
             from ..version import fsck as _fsck
             self.last_fsck = _fsck(self.store,
-                                   deep=(fsck_on_open == "deep"))
+                                   deep=(fsck_on_open == "deep"),
+                                   leases=self.leases)
         # Resume TimeIDs after the store's newest manifest: a reopened
         # store must append commits, never overwrite them.
         existing = self.store.list_time_ids()
         self._next_time = (existing[-1] + 1) if existing else 1
         # runtime import: version depends on core, never the reverse at
-        # module import time.
+        # module import time.  Built eagerly so the caller thread and the
+        # podding thread share one DAG instance from the start.
         from ..version import CommitDAG
-        self.versions = CommitDAG(self.store)
-        #: last saved tid; resumes from the persisted HEAD so a reopened
-        #: instance chains its first commit to the old tip.
+        self.versions = CommitDAG(self.store,
+                                  max_cas_retries=max_refs_cas_retries,
+                                  cas_backoff=refs_cas_backoff)
+        #: last saved/checked-out tid; resumes from the persisted HEAD so
+        #: a reopened instance chains its first commit to the old tip.
         self._head: Optional[TimeID] = self.versions.head_commit()
+        self.last_checkout_stats = None
         self.save_stats: List[Dict[str, Any]] = []
+        self._shared_tids = shared_tids
+        # Refcount index (incremental GC): loaded-or-rebuilt now so the
+        # first evict/gc never pays a surprise full scan mid-request.
+        self.refcounts = None
+        if refcounts:
+            from ..version.refcount import RefcountIndex
+            self.refcounts = RefcountIndex(self.store)
+            self.refcounts.ensure()
+        #: tips orphaned by delete_branch, awaiting an incremental gc()
+        self._gc_backlog: List[TimeID] = []
+
+    # ------------------------------------------------------------------
+    # multi-writer plumbing (leases, fenced TimeIDs)
+    # ------------------------------------------------------------------
+    def _alloc_time_id(self) -> TimeID:
+        """Next TimeID.  Single-writer: the local counter.  Multi-writer
+        (or ``shared_tids``): a CAS counter meta blob, seeded no lower
+        than the local counter (which itself started past the newest
+        on-disk manifest), so two writers never mint the same commit id."""
+        if self.leases is None and not self._shared_tids:
+            tid = self._next_time
+            self._next_time += 1
+            return tid
+        while True:
+            cur = self.store.get_meta(TID_COUNTER_META_KEY)
+            floor = self._next_time
+            if cur is not None:
+                floor = max(floor, msgpack.unpackb(cur, raw=False))
+            blob = msgpack.packb(floor + 1, use_bin_type=True)
+            if self.store.compare_and_put_meta(TID_COUNTER_META_KEY, cur,
+                                               blob):
+                self._next_time = floor + 1
+                return floor
+
+    def _ensure_writer_lease(self) -> Optional[Lease]:
+        """The instance's writer lease: acquired lazily, renewed inline
+        when past half-TTL, re-acquired after a loss (its next save
+        re-registers its intent under the new fence token)."""
+        if self.leases is None:
+            return None
+        lease = self._writer_lease
+        if lease is not None:
+            if self._heartbeat is not None and self._heartbeat.lost:
+                lease = None
+            else:
+                try:
+                    if self.leases.now() >= lease.expires - lease.ttl_s / 2:
+                        self.leases.renew(lease)
+                    return lease
+                except LeaseLost:
+                    lease = None
+        if self._heartbeat is not None:
+            self._heartbeat.stop()
+            self._heartbeat = None
+        lease = self.leases.acquire_writer()
+        self._writer_lease = lease
+        if self._lease_heartbeat:
+            self._heartbeat = LeaseHeartbeat(self.leases, lease).start()
+        return lease
 
     def close(self) -> List[BaseException]:
-        """Shut down: drain the save pipeline, returning (not raising)
-        any pending save errors.  Idempotent."""
-        return self.saver.drain()
+        """Shut down: drain the save pipeline (returning — not raising —
+        any pending save errors), stop the heartbeat, and release the
+        writer lease so peers need not wait out its TTL.  Idempotent."""
+        errors = self.saver.drain()
+        self._join_side_stream()
+        if self._heartbeat is not None:
+            self._heartbeat.stop()
+            self._heartbeat = None
+        if self.leases is not None and self._writer_lease is not None:
+            try:
+                self.leases.release(self._writer_lease)
+            except Exception:
+                pass                  # store down: the lease just expires
+            self._writer_lease = None
+        return errors
 
     # ------------------------------------------------------------------
     # save
@@ -212,8 +396,7 @@ class Chipmink:
         parent: Optional[TimeID] = None,
         branch: Optional[str] = None,
     ) -> TimeID:
-        time_id = self._next_time
-        self._next_time += 1
+        time_id = self._alloc_time_id()
         if parent is None:
             if branch is not None:
                 # commit onto a named ref: chain to ITS tip (None for a
@@ -229,23 +412,137 @@ class Chipmink:
             graph = build_graph(state, chunk_bytes=self.chunk_bytes)
             ginfo = None
         t_graph = _time.perf_counter() - t0
-        self._save_body(time_id, graph, ginfo, accessed_vars,
-                        touched_prefixes, readonly_paths, parent, t_graph,
-                        branch)
+
+        snap: Dict[str, Any] = {}
+
+        def work() -> None:
+            self._save_body(time_id, graph, ginfo, accessed_vars,
+                            touched_prefixes, readonly_paths, parent, t_graph,
+                            snap, branch)
+
+        if self.async_mode:
+            ready: List[Optional[torch.cuda.Event]] = []
+
+            def body() -> None:
+                if ready[0] is None:
+                    work()
+                    return
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self._side_stream):
+                    self._side_stream.wait_event(ready[0])
+                    work()
+
+            try:
+                # overlapped; FIFO on the podding thread.  The snapshot is
+                # taken once a pipeline slot is free, so a stalled save
+                # holds no copy while it waits.  May re-raise a PREVIOUS
+                # save's failure, in which case THIS save is dropped (its
+                # body never enqueued), as it is when the snapshot fails.
+                self.saver.submit(body, prepare=lambda: ready.append(
+                    self._snapshot(graph, time_id, snap)))
+            except BaseException:
+                # The graph cache already advanced for the dropped save, so
+                # a later identical state would diff as "unchanged" against
+                # a build that never persisted.  Invalidating the cache
+                # forces the next save to rebuild from scratch; queued
+                # bodies may still re-arm _prev_pods / _pod_digests, but a
+                # from-scratch build never consults them.
+                if self._graph_cache is not None:
+                    self._graph_cache.invalidate()
+                raise
+        else:
+            work()
         self._head = time_id
         return time_id
 
+    def _snapshot(self, graph: ObjectGraph, time_id: TimeID,
+                  snap: Dict[str, Any]) -> Optional[torch.cuda.Event]:
+        """Async-mode snapshot on the caller's thread (see the snapshot
+        rule in the module docstring): every tensor leaf of
+        ``graph.arrays`` is replaced by its view into a fresh buffer
+        copied on the current stream (a tensor on another device
+        raises); small writable numpy leaves are copied
+        (copy-on-submit).  Fills ``snap`` with the stats and
+        returns the event the side stream must wait on (None off CUDA)."""
+        t0 = _time.perf_counter()
+        tensor_keys: List[str] = []
+        n_leaf_copies = 0
+        large_leaves: List[str] = []
+        for key, arr in graph.arrays.items():
+            if isinstance(arr, torch.Tensor):
+                if arr.device != self.device:
+                    raise ValueError(f"leaf {key!r} is on {arr.device}, "
+                                     f"not on {self.device}")
+                tensor_keys.append(key)
+            elif (isinstance(arr, np.ndarray) and arr.flags.writeable
+                    and self.copy_on_submit_bytes > 0):
+                if arr.nbytes <= self.copy_on_submit_bytes:
+                    graph.arrays[key] = arr.copy()
+                    n_leaf_copies += 1
+                else:
+                    large_leaves.append(key)
+        if large_leaves and self.large_leaf_action != "ignore":
+            msg = (
+                f"async save {time_id}: host leaf(s) "
+                f"{sorted(large_leaves)[:4]}"
+                f"{'...' if len(large_leaves) > 4 else ''} exceed "
+                f"copy_on_submit_bytes={self.copy_on_submit_bytes} and are "
+                "snapshotted BY REFERENCE — mutating them in place before "
+                "wait() returns corrupts the in-flight save.  Either raise "
+                "copy_on_submit_bytes past the largest host leaf, call "
+                "wait() before mutating, or silence with "
+                "large_leaf_action='ignore'.")
+            if self.large_leaf_action == "raise":
+                raise ValueError(msg)
+            fresh = [k for k in large_leaves
+                     if k not in self._large_leaves_warned]
+            if fresh:
+                self._large_leaves_warned.update(fresh)
+                warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+        cuda = self.device.type == "cuda"
+        if cuda and self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=self.device)
+        n_bytes = 0
+        if tensor_keys:
+            views, buf = snapshot_tensors([graph.arrays[k]
+                                           for k in tensor_keys])
+            graph.arrays.update(zip(tensor_keys, views))
+            n_bytes = buf.numel()
+            if cuda:
+                # the body reads the buffer on the side stream: its memory
+                # must not return to the caller stream's pool before then.
+                buf.record_stream(self._side_stream)
+        ready = None
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        snap.update(n_leaf_copies=n_leaf_copies, n_snapshot_bytes=n_bytes,
+                    t_snapshot=_time.perf_counter() - t0)
+        return ready
+
+    def _join_side_stream(self) -> None:
+        """Order the caller's current stream after every body's device
+        work (no host sync)."""
+        if self._side_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._side_stream)
+
     def wait(self) -> None:
-        self.saver.wait()
+        """Join every in-flight save (re-raising pending save errors)."""
+        try:
+            self.saver.wait()
+        finally:
+            self._join_side_stream()
 
     def _save_body(self, time_id, graph, ginfo, accessed_vars,
                    touched_prefixes, readonly_paths, parent, t_graph,
-                   branch=None) -> None:
+                   snap, branch=None) -> None:
         try:
             self._save_body_inner(time_id, graph, ginfo, accessed_vars,
                                   touched_prefixes, readonly_paths, parent,
-                                  t_graph, branch)
-        except BaseException:
+                                  t_graph, snap, branch)
+        except BaseException as exc:
             # A half-applied save poisons the reuse chain: the graph cache
             # has already advanced, so the next save must re-pod and
             # re-hash from its own graph rather than trust artifacts of a
@@ -258,6 +555,17 @@ class Chipmink:
             self._head = (self.versions.branches.get(branch)
                           if branch is not None
                           else self.versions.head_commit())
+            # the failed save's intent pins nothing worth keeping: drop
+            # it (best-effort).  A save fenced out by LeaseLost forgets
+            # its lease so the next save re-acquires under a fresh token.
+            if self.leases is not None and self._writer_lease is not None:
+                if isinstance(exc, LeaseLost):
+                    self._writer_lease = None
+                else:
+                    try:
+                        self.leases.clear_intent(self._writer_lease)
+                    except Exception:
+                        self._writer_lease = None
             raise
 
     def _speculate(self, graph: ObjectGraph,
@@ -301,8 +609,12 @@ class Chipmink:
 
     def _save_body_inner(self, time_id, graph, ginfo, accessed_vars,
                          touched_prefixes, readonly_paths, parent,
-                         t_graph, branch=None) -> None:
-        stats: Dict[str, Any] = {"time_id": time_id, "t_graph": t_graph}
+                         t_graph, snap, branch=None) -> None:
+        stats: Dict[str, Any] = {"time_id": time_id, "t_graph": t_graph,
+                                 "n_leaf_copies": snap.get("n_leaf_copies", 0)}
+        if snap:
+            stats["n_snapshot_bytes"] = snap["n_snapshot_bytes"]
+            stats["t_snapshot"] = snap["t_snapshot"]
         if ginfo is not None:
             stats["t_graph_inc"] = t_graph
             stats["n_nodes_reused"] = ginfo.n_nodes_reused
@@ -382,8 +694,12 @@ class Chipmink:
         pods_meta: Dict[int, Dict[str, Any]] = {}
         written = aliased = digests_reused = 0
         bytes_before = self.store.total_bytes()
+        #: the parent commit's digest per pod id — the delta base each
+        #: touched pod would chain to (captured before new_digests lands).
+        prev_pod_digests = self._pod_digests
         new_digests: Dict[int, bytes] = {}
         to_write: List[tuple] = []        # (pid, pod, dig_hex, digest)
+        aliased_entries: List[tuple] = []  # same shape; dedup-skipped pods
         for pid, pod in asg.pods.items():
             if touched_pods is not None and pid not in touched_pods \
                     and pid in self._pod_digests:
@@ -411,6 +727,7 @@ class Chipmink:
                 to_write.append((pid, pod, dig_hex, digest))
             else:
                 aliased += 1
+                aliased_entries.append((pid, pod, dig_hex, digest))
             pods_meta[pid] = {
                 "d": dig_hex,
                 "pages": (asg.memo.pods[pid].pages
@@ -420,6 +737,29 @@ class Chipmink:
         self._pod_digests = new_digests
         stats["n_pod_digests_reused"] = digests_reused
         stats["t_decide"] = _time.perf_counter() - t0
+
+        # intent phase (multi-writer): declare the commit — its TimeID,
+        # its parent and every digest the manifest will reference — under
+        # the writer lease BEFORE any pod byte lands and before dedup is
+        # trusted.  Aliased pods are then re-verified: a sweep that ran
+        # before the intent landed may have deleted the blob the
+        # thesaurus still points at, in which case the pod is rewritten.
+        lease = self._ensure_writer_lease()
+        n_alias_rewrites = 0
+        if lease is not None:
+            self.leases.set_intent(
+                lease,
+                time_ids=tuple(t for t in (time_id, parent)
+                               if t is not None),
+                digests=sorted({m["d"] for m in pods_meta.values()}))
+            for pid, pod, dig_hex, digest in aliased_entries:
+                if not self.store.has_pod(dig_hex):
+                    to_write.append((pid, pod, dig_hex, digest))
+                    with self.saver.l_ns:
+                        self.thesaurus.prune([dig_hex])
+                    aliased -= 1
+                    n_alias_rewrites += 1
+        stats["n_alias_rewrites"] = n_alias_rewrites
 
         # gather phase.  Fused path: payload bytes of speculated chunks
         # already arrived with the digest fetch; only mispredicted chunks
@@ -444,16 +784,55 @@ class Chipmink:
         # Each store write retries transient I/O errors with backoff
         # (retry_policy); puts are idempotent — a pod is content-addressed
         # and the rename is atomic — so a retried step never double-
-        # applies.
+        # applies.  InjectedCrash (a BaseException) punches through.
         t0 = _time.perf_counter()
         n_retries = 0
+        # delta-chain eligibility for this save: only the reuse path has a
+        # per-pod parent digest AND the soundness proof (assignment reuse +
+        # detector mask) that non-patched entries are byte-identical.
+        delta_eligible = (self.delta_chains and self.enable_cd
+                          and pods_reused and touched_pods is not None)
+        scalar_changed = set(ginfo.scalar_changed_keys) if ginfo else set()
+        n_delta_pods = 0
+        chain_depth_max = 0
+        t_delta = 0.0
         for pid, pod, dig_hex, digest in to_write:
             data = serialize_pod(pod, graph, asg, chunk_bytes_of)
 
-            def put_one(dig_hex=dig_hex, data=data, digest=digest) -> bool:
+            delta_blob = base_hex = None
+            delta_depth = 0
+            base = prev_pod_digests.get(pid) if delta_eligible else None
+            if base is not None and base != digest:
+                td0 = _time.perf_counter()
+                cand_hex = base.hex()
+                try:
+                    # depth the new pod would sit at if chained to base;
+                    # a missing/broken/cyclic base chain disqualifies.
+                    depth = self.store.pod_chain_depth(cand_hex) + 1
+                except (FileNotFoundError, ValueError):
+                    depth = None
+                if (depth is not None
+                        and depth <= self.delta_policy.max_chain_depth):
+                    changed_locals = [
+                        i for i, nid in enumerate(pod.node_ids)
+                        if ((n := graph.node(nid)).kind == CHUNK
+                            and n.key in report.dirty)
+                        or n.key in scalar_changed]
+                    cand = encode_pod_delta(data, cand_hex, changed_locals)
+                    if self.delta_policy.admit(len(cand), len(data), depth):
+                        delta_blob, base_hex, delta_depth = \
+                            cand, cand_hex, depth
+                t_delta += _time.perf_counter() - td0
+
+            def put_one(dig_hex=dig_hex, data=data, digest=digest,
+                        delta_blob=delta_blob) -> bool:
                 with self.saver.l_ns:
                     if self.enable_cd:
-                        fresh = self.store.put_pod(dig_hex, data)
+                        if delta_blob is not None:
+                            fresh = self.store.put_pod_delta(dig_hex,
+                                                             delta_blob)
+                        else:
+                            fresh = self.store.put_pod(dig_hex, data)
                         self.thesaurus.insert(digest, dig_hex)
                         return fresh
                     self.store.put_pod(dig_hex, data)
@@ -463,12 +842,22 @@ class Chipmink:
             n_retries += nr
             if fresh:
                 written += 1
+                if delta_blob is not None:
+                    # the manifest records chain structure only for pods
+                    # this commit actually stored in delta form (a dedup
+                    # hit keeps whatever form the digest already has).
+                    pods_meta[pid]["delta_of"] = base_hex
+                    n_delta_pods += 1
+                    chain_depth_max = max(chain_depth_max, delta_depth)
             else:
                 aliased += 1              # disk-level synonym
         stats["t_write"] = _time.perf_counter() - t0
         stats["n_retries"] = n_retries
         stats["pods_written"] = written
         stats["pods_aliased"] = aliased
+        stats["n_delta_pods"] = n_delta_pods
+        stats["t_delta_encode"] = t_delta
+        stats["chain_depth_max"] = chain_depth_max
         stats["bytes_written"] = self.store.total_bytes() - bytes_before
 
         manifest = {
@@ -486,15 +875,30 @@ class Chipmink:
 
         def commit() -> None:
             with self.saver.l_ns:
+                # fencing gate: the refs CAS must not publish a commit
+                # whose lease was reaped or taken over mid-save — a fenced
+                # GC may already have swept what the dead intent pinned.
+                if lease is not None:
+                    self.leases.check(lease)
                 # the manifest put is the data commit point; the refs CAS
-                # in record() is the visibility commit point.  Both are
-                # idempotent, so the pair is safe to retry as a unit on
-                # transient I/O errors.
+                # in record() is the visibility commit point.  All three
+                # steps are idempotent, so the unit is safe to retry on
+                # transient I/O errors.  The refcount lands BEFORE the refs
+                # CAS: a crash in between leaves a counted dangling commit
+                # — conservative, and exactly what rebuild() computes.
                 self.store.put_manifest(time_id, manifest)
+                if self.refcounts is not None:
+                    self.refcounts.record_commit(time_id, manifest)
                 self.versions.record(time_id, parent, branch=branch)
 
         _, nr = call_with_retries(commit, self.retry_policy)
         stats["n_retries"] = n_retries + nr
+        if lease is not None:
+            # the commit is now pinned by refs; best-effort intent clear.
+            try:
+                self.leases.clear_intent(lease)
+            except Exception:
+                pass
         self._prev_pods = asg
         self._prev_graph = graph
         self.save_stats.append(stats)
@@ -550,27 +954,185 @@ class Chipmink:
             return self.versions.create_branch(name, at=at)
 
     def tag(self, name: str, at: Any = None) -> TimeID:
-        """Pin a commit under an immutable name."""
+        """Pin a commit under an immutable name (a GC root)."""
         self.wait()
         with self.saver.l_ns:
             return self.versions.create_tag(name, at=at)
 
+    def delete_branch(self, name: str) -> None:
+        """Drop a branch ref; its exclusive commits become GC-eligible.
+        Drains in-flight saves first (an async commit still targeting the
+        branch would otherwise resurrect it).  With refcounts on, the
+        orphaned tip is remembered so the next ``gc()`` reclaims it
+        incrementally; ``evict_branch`` deletes and reclaims in one step."""
+        self.wait()
+        with self.saver.l_ns:
+            tip = self.versions.branches.get(name)
+            self.versions.delete_branch(name)
+            if self.refcounts is not None and tip is not None:
+                self._gc_backlog.append(tip)
+
+    def checkout(self, ref: Any = None, *, like: Any = None) -> Any:
+        """Restore the state of a branch / tag / TimeID, delta-aware.
+
+        Only pods whose digest differs from the live in-memory state are
+        read from the store; leaves whose digests all match come back as
+        the live tensor objects (shared with the caller's previous state).
+        The live bytes are digested first (one fused pass, one fetch), so
+        a tensor changed in place since the last save comes from the store;
+        afterwards the incremental save pipeline is primed so the next
+        `save()` reuses the checked-out assignment and pays one blocking
+        fetch.  Moves HEAD (onto the branch, or detached for tags/TimeIDs)
+        and returns the restored state (re-flowed into `like` if given).
+        Fine-grained stats land in `self.last_checkout_stats`.
+        """
+        self.wait()
+        from ..version import delta_checkout
+        dag = self.versions
+        tid = dag.resolve(ref)
+        if tid is None:
+            raise FileNotFoundError("no commit to check out")
+        state, stats = delta_checkout(self, tid)
+        self.last_checkout_stats = stats
+        with self.saver.l_ns:
+            if ref is not None:
+                dag.set_head(ref)
+            self._head = tid
+        if like is not None:
+            return reflow(like, state)
+        return state
+
     def log(self, ref: Any = None, limit: Optional[int] = None):
-        """First-parent history of a ref (default HEAD), newest first."""
+        """First-parent history of a ref (default HEAD), newest first.
+        Drains in-flight saves so the newest commit is visible."""
         self.wait()
         return self.versions.log(ref, limit=limit)
 
-    def checkout(self, ref: Any = None, *, like: Any = None) -> Any:
-        raise _not_ported("checkout", "version/checkout.py item")
-
     def diff(self, a: Any, b: Any):
-        raise _not_ported("diff", "version/checkout.py item")
+        """Pod-granular delta between two refs (see `PodDelta`)."""
+        self.wait()
+        return self.versions.diff(a, b)
 
     def gc(self, *, dry_run: bool = False, full: Optional[bool] = None):
-        raise _not_ported("gc", "version/gc.py item")
+        """Reclaim pods/manifests unreachable from branch refs, tags,
+        and HEAD.  Drains in-flight saves first, so a pending manifest
+        always lands — and roots its pods — before anything is marked.
+        Swept digests are pruned from the thesaurus so a future save
+        rewrites, not aliases, them.  `dry_run=True` reports the same
+        reclaim the real sweep would free, deleting nothing.
+
+        With ``refcounts=True`` the default is the incremental path:
+        drain the backlog of `delete_branch` tips through
+        `refcount_reclaim`; ``full=True`` forces the mark-and-sweep oracle
+        and trues the refcount index up afterwards.  Without refcounts
+        every gc is full.
+        """
+        self.wait()
+        from ..version import mark_and_sweep, refcount_reclaim
+        if full is None:
+            full = self.refcounts is None
+        with self.saver.l_ns:
+            if not full and self.refcounts is not None:
+                stats = refcount_reclaim(self.store, self.versions,
+                                         self.refcounts,
+                                         list(self._gc_backlog),
+                                         extra_roots=(self._head,),
+                                         dry_run=dry_run,
+                                         leases=self.leases)
+                if not dry_run:
+                    self._gc_backlog.clear()
+                    if stats.deleted_pod_digests:
+                        self.thesaurus.prune(stats.deleted_pod_digests)
+                return stats
+            stats = mark_and_sweep(self.store, self.versions,
+                                   extra_roots=(self._head,),
+                                   dry_run=dry_run,
+                                   leases=self.leases)
+            if not dry_run:
+                self._gc_backlog.clear()
+                if stats.deleted_pod_digests:
+                    self.thesaurus.prune(stats.deleted_pod_digests)
+                if self.refcounts is not None:
+                    # the sweep bypassed the index by design (it is the
+                    # oracle); reconcile it with the store it just edited.
+                    self.refcounts.rebuild()
+        return stats
 
     def evict_branch(self, name: str, *, dry_run: bool = False):
-        raise _not_ported("evict_branch", "version/refcount.py item")
+        """Delete branch `name` and reclaim its exclusive commits and
+        pods immediately.  Requires ``refcounts=True``; cost scales with
+        the branch's delta against surviving history, and what it frees
+        is bit-identical to a full mark-and-sweep after the same
+        deletion.  ``dry_run=True`` estimates the reclaim without
+        touching the ref or the store.  Returns `GCStats`.
+        """
+        if self.refcounts is None:
+            raise RuntimeError("evict_branch requires refcounts=True "
+                               "(otherwise: delete_branch + gc)")
+        self.wait()
+        from ..version import refcount_reclaim
+        with self.saver.l_ns:
+            # a pool peer may have advanced the branch since we last read
+            # refs: evict the CURRENT tip, and fail loudly on a branch a
+            # peer already deleted.
+            self.versions.sync()
+            tip = self.versions.branches.get(name)
+            if tip is None:
+                raise KeyError(f"unknown branch {name!r}")
+            # the live in-memory state pins its own commit (extra_roots)
+            # — unless that commit IS the evicted tip, in which case the
+            # live incremental state dies with the branch: reset it like
+            # a failed save, so the next save rebuilds from scratch.
+            head_root = self._head if self._head != tip else None
+            if dry_run:
+                return refcount_reclaim(self.store, self.versions,
+                                        self.refcounts, [tip],
+                                        extra_roots=(head_root,),
+                                        exclude_refs=(name,),
+                                        dry_run=True,
+                                        leases=self.leases)
+            if self._head == tip:
+                self._prev_pods = None
+                self._prev_graph = None
+                self._pod_digests = {}
+                if self._graph_cache is not None:
+                    self._graph_cache.invalidate()
+                self._head = None
+            self.versions.delete_branch(name)
+            stats = refcount_reclaim(self.store, self.versions,
+                                     self.refcounts, [tip],
+                                     extra_roots=(head_root,),
+                                     leases=self.leases)
+            if stats.deleted_pod_digests:
+                self.thesaurus.prune(stats.deleted_pod_digests)
+        return stats
+
+    def fsck(self, *, deep: bool = False, repair: bool = True):
+        """Recovery scan: classify torn saves, roll refs back to the
+        newest complete commit, sweep debris.  Drains in-flight saves
+        first; afterwards the in-memory DAG and HEAD are re-synced to the
+        repaired refs, and swept pod digests are pruned from the
+        thesaurus.  Returns the `FsckReport` (also ``self.last_fsck``)."""
+        self.wait()
+        from ..version import fsck as _fsck
+        with self.saver.l_ns:
+            report = _fsck(self.store, deep=deep, repair=repair,
+                           leases=self.leases)
+            if report.swept_pod_digests:
+                self.thesaurus.prune(report.swept_pod_digests)
+            if repair:
+                self.versions.reload()
+                self._head = self.versions.head_commit()
+                # a swept torn save may have consumed TimeIDs; never
+                # reissue one below an existing manifest.
+                existing = self.store.list_time_ids()
+                if existing:
+                    self._next_time = max(self._next_time,
+                                          existing[-1] + 1)
+                if self.refcounts is not None:
+                    self.refcounts.ensure()
+        self.last_fsck = report
+        return report
 
 
 def reflow(like: Any, loaded: Dict[str, Any]) -> Any:

@@ -9,7 +9,8 @@ pod, per-save statistics, and the parent TimeID (branching/versioning).
 Two backends share one interface: a filesystem store (production path) and
 an in-memory store (benchmarks measure logical bytes without disk noise).
 Both support enumeration (`list_pods`, `list_time_ids`) and deletion
-(`delete_pod`, `delete_manifest`) — what fsck's repairs use — plus small named metadata blobs (`put_meta`/`get_meta`)
+(`delete_pod`, `delete_manifest`) — the substrate of mark-and-sweep GC
+(version/gc.py) — plus small named metadata blobs (`put_meta`/`get_meta`)
 used by the version manager to persist branch refs, tags, and HEAD.
 
 Crash consistency
@@ -27,22 +28,38 @@ and the containing directory entry are fsynced before the rename is
 considered landed (slower; for stores that must survive power loss, not
 just process death).
 
-Delta-chain pod storage (read side)
------------------------------------
+Delta-chain pod storage
+-----------------------
 A pod digest may be backed by one of two *physical forms*: a **whole**
 blob (the canonical `serialize_pod` bytes, possibly compressed) or a
 **delta** blob (`core/delta.py`: patched entries against a parent pod's
-digest), as the reference package writes with ``delta_chains=True``.
-The digest always names the *full* content — `get_pod` resolves the
-form transparently, walking the delta chain back to a whole base and
-replaying patches, so a store written by the reference with delta
-chains loads here bit-identically.  This package does not write delta
-forms yet (``Chipmink(delta_chains=True)`` raises):
+digest).  The digest always names the *full* content — `get_pod`
+resolves the form transparently, walking the delta chain back to a
+whole base and replaying patches, so every reader above the store sees
+bit-identical bytes either way (digest equality ⇒ byte equality is
+preserved; that invariant is what dedup, the thesaurus, and delta-aware
+checkout already rely on).  The contract:
 
-  * If *both* forms exist, the whole form wins (reads, `pod_nbytes`).
-    That state is the legal crash window of the reference's
-    re-materialization, which writes the whole form FIRST and only
-    then deletes the delta form; fsck clears it (`drop_whole_form`).
+  * `put_pod_delta(digest, delta_blob)` stores the delta form; dedups
+    against *either* existing form.  The caller guarantees the delta's
+    base digest is present in the store and that applying the delta to
+    the base reproduces exactly the bytes `digest` names (the save path
+    derives the patch set from the detector's dirty mask, which proves
+    every unpatched entry byte-identical).  The commit's manifest
+    records the link as ``pods[pid]["delta_of"] = base_digest`` so
+    readers of the manifest alone can see chain structure.
+  * Chain depth is bounded by the writer's `DeltaPolicy.max_chain_depth`
+    (enforced at encode time via `pod_chain_depth`); the store itself
+    only enforces the hard `MAX_WALK` cycle guard.
+  * If *both* forms exist, the whole form wins (reads, `pod_nbytes`,
+    `pod_base`).  That state is the legal crash window of
+    `rematerialize_pod`, which writes the whole form FIRST and only
+    then deletes the delta form — a crash between the two leaves a
+    readable pod plus redundant delta debris that fsck clears.
+  * GC ordering: before sweeping a dead base, every live descendant is
+    re-materialized (whole form written from the still-complete chain);
+    only then are dead pods deleted (version/gc.py).  Dry-run reports
+    reclaim net of the re-materialization bytes it *would* write.
   * `delete_pod` removes both forms and frees their summed bytes;
     `list_pods` enumerates the union; `pod_nbytes` is the physical
     stored size of the winning form.
@@ -90,8 +107,11 @@ class StoreStats:
         self.meta_cas_conflicts = 0
         # stale CAS lockfiles broken (dead-pid / aged-out; file backend)
         self.meta_locks_broken = 0
-        # delta-chain pod storage (read side)
+        # delta-chain pod storage
+        self.delta_pods_written = 0   # pods stored as deltas
+        self.delta_bytes_written = 0  # stored bytes of those deltas
         self.chain_reads = 0          # get_pod calls that walked a chain
+        self.pods_rematerialized = 0  # delta pods rewritten whole (GC/fsck)
 
     def as_dict(self) -> Dict[str, Any]:
         return dict(self.__dict__)
@@ -104,7 +124,7 @@ class BaseStore:
         self.stats = StoreStats()
         self._lock = threading.Lock()
         #: delta digest -> base digest, lazily filled on chain walks and
-        #: invalidated when the delta form is deleted.
+        #: invalidated when the delta form is deleted/re-materialized.
         self._chain_cache: Dict[str, str] = {}
 
     # -- blob framing (shared by whole and delta forms) --------------------
@@ -154,6 +174,9 @@ class BaseStore:
     def _has_delta(self, digest_hex: str) -> bool:
         raise NotImplementedError
 
+    def _put_delta_raw(self, digest_hex: str, data: bytes) -> None:
+        raise NotImplementedError
+
     def _get_delta_raw(self, digest_hex: str) -> bytes:
         raise NotImplementedError
 
@@ -195,8 +218,10 @@ class BaseStore:
     def delete_pod(self, digest_hex: str) -> int:
         """Remove a pod (both physical forms); returns the number of
         stored bytes freed (0 if the pod was absent).  Used by
-        fsck's repairs — callers must only delete digests unreachable
-        from every ref."""
+        mark-and-sweep GC — callers must only delete digests unreachable
+        from every ref, and must re-materialize live delta descendants
+        of a doomed base first (see version/gc.py for the crash-safe
+        ordering: re-materialize, then manifests, then pods)."""
         with self._lock:
             n = 0
             if self._has_whole(digest_hex):
@@ -223,6 +248,27 @@ class BaseStore:
             self._put_raw(digest_hex, blob)
             self.stats.pods_written += 1
             self.stats.pod_bytes_written += len(blob)
+            return True
+
+    def put_pod_delta(self, digest_hex: str, delta_blob: bytes) -> bool:
+        """Store `digest_hex` in delta form (a `core/delta.py` blob whose
+        base must already be present).  Dedups against either existing
+        form.  Returns True if written.
+
+        The caller owns the correctness contract: applying the delta
+        chain must reproduce exactly the bytes `digest_hex` names, and
+        chain depth must respect its `DeltaPolicy` (the store enforces
+        only the hard `MAX_WALK` cycle guard on reads)."""
+        with self._lock:
+            if self.has_pod(digest_hex):
+                self.stats.pods_deduped += 1
+                return False
+            blob = self._encode_blob(delta_blob)
+            self._put_delta_raw(digest_hex, blob)
+            self.stats.pods_written += 1
+            self.stats.pod_bytes_written += len(blob)
+            self.stats.delta_pods_written += 1
+            self.stats.delta_bytes_written += len(blob)
             return True
 
     def _resolve_full_locked(self, digest_hex: str):
@@ -277,6 +323,13 @@ class BaseStore:
             self._chain_cache[digest_hex] = base
         return base
 
+    def pod_base(self, digest_hex: str) -> Optional[str]:
+        """The base digest this pod's stored delta patches, or None when
+        the pod is stored whole / absent (whole form wins when both
+        physical forms exist)."""
+        with self._lock:
+            return self._pod_base_locked(digest_hex)
+
     def pod_chain(self, digest_hex: str) -> List[str]:
         """Digests from `digest_hex` back to (and including) its
         whole-stored base; ``[digest_hex]`` for a pod stored whole.
@@ -298,11 +351,27 @@ class BaseStore:
                 f"delta chain from {digest_hex} exceeds MAX_WALK="
                 f"{MAX_WALK} links — cycle or pathological store")
 
+    def pod_chain_depth(self, digest_hex: str) -> int:
+        """Number of delta links between `digest_hex` and its whole base
+        (0 for a pod stored whole)."""
+        return len(self.pod_chain(digest_hex)) - 1
+
+    def pod_whole_nbytes(self, digest_hex: str) -> int:
+        """Stored size this pod WOULD occupy as a whole blob — the
+        actual size if already whole, else the encoded size of the
+        chain-resolved bytes.  GC dry-run uses this so its
+        re-materialization estimate equals the real sweep's writes."""
+        with self._lock:
+            if self._has_whole(digest_hex):
+                return self._whole_nbytes(digest_hex)
+            data, _, _ = self._resolve_full_locked(digest_hex)
+        return len(self._encode_blob(data))
+
     def drop_whole_form(self, digest_hex: str) -> bool:
         """Remove a pod's whole form when a delta form also exists —
-        fsck's repair for a torn re-materialization (as the reference
-        package leaves it), where a truncated whole blob shadows a
-        still-valid delta chain.  Returns True if dropped.  Refuses (False) when only one form exists: deleting
+        fsck's repair for a torn re-materialization, where a truncated
+        whole blob shadows a still-valid delta chain.  Returns True if
+        dropped.  Refuses (False) when only one form exists: deleting
         the sole copy is `delete_pod`'s job, never a repair."""
         with self._lock:
             if not (self._has_whole(digest_hex)
@@ -312,6 +381,35 @@ class BaseStore:
             self._delete_raw(digest_hex)
             self.stats.pod_bytes_deleted += n
             return True
+
+    def rematerialize_pod(self, digest_hex: str) -> int:
+        """Rewrite a delta-stored pod as a whole blob; returns the bytes
+        written (0 if the pod was already whole).
+
+        Crash-safe ordering: the whole form is written FIRST, then the
+        delta form is deleted — a crash between the two leaves both
+        forms, and reads prefer the whole form; fsck clears the
+        redundant delta.  Byte accounting flows through
+        `pod_bytes_written`/`pod_bytes_deleted` so `total_bytes()`
+        reflects the swap."""
+        with self._lock:
+            if self._has_whole(digest_hex):
+                if self._has_delta(digest_hex):
+                    nd = self._delta_nbytes(digest_hex)
+                    self._delete_delta_raw(digest_hex)
+                    self._chain_cache.pop(digest_hex, None)
+                    self.stats.pod_bytes_deleted += nd
+                return 0
+            data, _, _ = self._resolve_full_locked(digest_hex)
+            blob = self._encode_blob(data)
+            self._put_raw(digest_hex, blob)
+            self.stats.pod_bytes_written += len(blob)
+            nd = self._delta_nbytes(digest_hex)
+            self._delete_delta_raw(digest_hex)
+            self._chain_cache.pop(digest_hex, None)
+            self.stats.pod_bytes_deleted += nd
+            self.stats.pods_rematerialized += 1
+            return len(blob)
 
     # -- manifests ----------------------------------------------------------
     def _put_manifest_raw(self, time_id: int, blob: bytes) -> None:
@@ -421,6 +519,9 @@ class MemoryStore(BaseStore):
 
     def _has_delta(self, digest_hex: str) -> bool:
         return digest_hex in self._delta_pods
+
+    def _put_delta_raw(self, digest_hex: str, data: bytes) -> None:
+        self._delta_pods[digest_hex] = data
 
     def _get_delta_raw(self, digest_hex: str) -> bytes:
         return self._delta_pods[digest_hex]
@@ -582,6 +683,11 @@ class FileStore(BaseStore):
 
     def _has_delta(self, digest_hex: str) -> bool:
         return os.path.exists(self._delta_path(digest_hex))
+
+    def _put_delta_raw(self, digest_hex: str, data: bytes) -> None:
+        path = self._delta_path(digest_hex)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self._write_atomic(path, data)
 
     def _get_delta_raw(self, digest_hex: str) -> bytes:
         with open(self._delta_path(digest_hex), "rb") as f:

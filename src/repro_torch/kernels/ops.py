@@ -81,6 +81,40 @@ def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     return out
 
 
+#: byte alignment of every leaf inside a snapshot buffer: a multiple of
+#: every itemsize, so each leaf views its bytes in its own dtype and the
+#: packer's word view of it needs no copy.
+SNAPSHOT_ALIGN = 16
+
+
+def snapshot_tensors(tensors: Sequence[torch.Tensor]
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Copy tensors (all on one device) into ONE fresh flat byte buffer,
+    on the current stream, with a few launches: the leaves' views into
+    the buffer are filled by one multi-tensor copy (`_foreach_copy_`),
+    not one launch per leaf.  Each leaf starts `SNAPSHOT_ALIGN`-aligned;
+    the gaps are never read.  Returns (one view per tensor with its shape
+    and dtype, the buffer).  The views are writable and own no storage of
+    their own: they keep the buffer alive."""
+    if not tensors:
+        return [], torch.empty(0, dtype=torch.uint8)
+    device = tensors[0].device
+    offsets: List[int] = []
+    off = 0
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"snapshot of tensors on {t.device} and {device}")
+        offsets.append(off)
+        off += -(-t.numel() * t.element_size() // SNAPSHOT_ALIGN) \
+            * SNAPSHOT_ALIGN
+    buf = torch.empty(off, dtype=torch.uint8, device=device)
+    views = [buf[o:o + t.numel() * t.element_size()].view(t.dtype)
+             .view(t.shape) for t, o in zip(tensors, offsets)]
+    with torch.no_grad():
+        torch._foreach_copy_(views, list(tensors))
+    return views, buf
+
+
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload a host array without a blocking sync: on a GPU, one
     non-blocking copy from pinned memory (PyTorch's pinned allocator keeps

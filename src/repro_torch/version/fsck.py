@@ -33,6 +33,15 @@ A crash can therefore leave, in decreasing order of likelihood:
   * sweeps incomplete manifests (manifests-first crash ordering), empty
     and — in deep mode — corrupt pods, and ``.tmp``/stale-``.lock``
     debris;
+  * **reaps dead writers**: every expired lease (core/lease.py) is
+    removed along with its save intents, and a crashed sweeper's stuck
+    ``gc_phase: "sweep"`` is reset — the store-level counterpart of
+    breaking a dead process's CAS lockfile.  The reaped writer's
+    in-flight pods become plain unreferenced orphans, swept by the same
+    ``sweep_orphans`` path that handles torn 1→2-window debris.  A
+    LIVE lease (an active peer) is honored end to end: its intent tids
+    are not classified/swept even when their pods are still landing,
+    and its intent digests are excluded from the orphan sweep.
   * repairs the file backend's legacy ``HEAD`` pointer.
 
 Quick mode (default) checks existence and non-emptiness of every
@@ -48,7 +57,7 @@ atomic renames, or whenever paranoia is cheap.
 
 Delta-specific repairs: a **torn re-materialization** (corrupt whole
 blob shadowing a still-valid delta form — the legal crash window of
-the reference package's `rematerialize_pod`) is healed by dropping the whole form
+`store.rematerialize_pod`) is healed by dropping the whole form
 (``whole_forms_dropped``), after which the chain serves the bytes and
 any commit the corruption had condemned is re-classified complete.  A
 chain that is genuinely broken (base missing, torn link with no other
@@ -58,11 +67,11 @@ is swept like any other bad pod.  The orphan sweep follows chains too:
 a base only reachable as some referenced delta pod's ancestor is
 load-bearing, not debris.
 
-Writer leases and the refcount index are not ported yet: a store that
-holds either (written by the reference package with ``multi_writer=True``
-or ``refcounts=True``) is refused with `NotImplementedError` instead of
-being repaired without them.  ``sweep_orphans=True`` is exclusive-access
-only (a writer mid-save looks identical to debris).
+fsck's exclusivity contract is now lease-shaped: refs repair was always
+CAS-protected, and with live-lease awareness plus the stale-only lock
+sweep the default scan is safe to run on open while peers hold writer
+leases.  ``sweep_orphans=True`` remains exclusive-access-only (a
+leaseless legacy writer mid-save still looks identical to debris).
 """
 from __future__ import annotations
 
@@ -72,14 +81,10 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import msgpack
 
+from ..core.lease import LEASES_META_KEY, LeaseManager
 from ..core.store import BaseStore
 from .commit_graph import DEFAULT_BRANCH, REFS_META_KEY
-
-#: meta blobs of the reference package's writer leases and refcount index
-#: (its core/lease.py and version/refcount.py), which this package does
-#: not port yet: a store that holds either is refused, not misread.
-LEASES_META_KEY = "leases"
-REFCOUNTS_META_KEY = "pod_refcounts"
+from .refcount import REFCOUNTS_META_KEY
 
 #: attempts to land the repaired refs blob via CAS before giving up.
 MAX_REPAIR_RETRIES = 4
@@ -187,7 +192,8 @@ def _pod_state(store: BaseStore, digest_hex: str, deep: bool,
 
 
 def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
-         sweep_orphans: bool = False) -> FsckReport:
+         sweep_orphans: bool = False, reap_leases: bool = True,
+         leases: Optional[LeaseManager] = None) -> FsckReport:
     """Scan `store` for torn-save damage; repair and sweep if asked.
 
     Returns an `FsckReport`.  With ``sweep_orphans=True`` pods referenced
@@ -198,19 +204,27 @@ def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
     and tids pinned by a LIVE lease's save intent are never classified
     as damage or swept, so the default scan coexists with active peers.
 
-    A store that holds writer leases or a refcount index (written by the
-    reference package with ``multi_writer=True`` or ``refcounts=True``)
-    raises `NotImplementedError`: lease reaping and the refcount rebuild
-    are not ported yet (ROADMAP, queue 1).
+    ``reap_leases`` (with ``repair``) removes expired leases and their
+    orphaned intents — dead writers' liveness debris; pass a configured
+    `LeaseManager` via ``leases`` to share its clock/owner (tests drive
+    expiry with a fake clock), else one is built on the store's default
+    wall clock.
     """
     rep = FsckReport(deep=deep, repaired=repair)
     t0 = _time.perf_counter()
 
-    # ---- 0. lease debris (not ported: refuse the store) ---------------
+    # ---- 0. lease debris: reap dead writers, honor live ones ----------
+    live_tids: Set[int] = set()
+    live_digests: Set[str] = set()
     if store.get_meta(LEASES_META_KEY) is not None:
-        raise NotImplementedError(
-            "fsck of a store with writer leases (multi_writer) is not "
-            "ported yet: ROADMAP queue 1, multi_writer/lease.py item")
+        mgr = leases if leases is not None else LeaseManager(store)
+        if repair and reap_leases:
+            resets0 = mgr.n_phase_resets
+            rep.leases_reaped = mgr.reap_expired()
+            rep.gc_phase_reset = mgr.n_phase_resets > resets0
+        t, d = mgr.live_intents()
+        live_tids, live_digests = set(t), set(d)
+        rep.n_leases_live = len(mgr.live_leases())
 
     # ---- 1. classify every manifest -----------------------------------
     pod_cache: Dict[str, str] = {}
@@ -222,6 +236,8 @@ def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
             m = store.get_manifest(tid)
             digs = {meta["d"] for meta in m.get("pods", {}).values()}
         except Exception:
+            if tid in live_tids:
+                continue      # a live peer's save is mid-landing, not torn
             rep.incomplete[tid] = "torn manifest"
             continue
         parents[tid] = m.get("parent")
@@ -233,7 +249,10 @@ def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
             if state != "ok" and bad is None:
                 bad = f"{state} pod {d}"
         if bad is not None:
-            rep.incomplete[tid] = bad
+            if tid in live_tids:
+                rep.missing_pods.pop(tid, None)   # in-flight, not damage
+            else:
+                rep.incomplete[tid] = bad
         else:
             complete[tid] = digs
     rep.n_commits_complete = len(complete)
@@ -275,8 +294,8 @@ def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
         return rep
 
     # ---- 2b. heal torn re-materializations ------------------------------
-    # A corrupt pod that ALSO has a delta form is the reference's
-    # rematerialize_pod crash window: the half-written whole blob shadows a chain that can
+    # A corrupt pod that ALSO has a delta form is rematerialize_pod's
+    # crash window: the half-written whole blob shadows a chain that can
     # still serve the bytes.  Drop the whole form, re-verify the pod via
     # the chain, and re-classify any commit the corruption condemned.
     t0 = _time.perf_counter()
@@ -434,6 +453,7 @@ def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
             except (FileNotFoundError, ValueError):
                 pass
         bad_pods |= {d for d in store.list_pods() if d not in referenced}
+    bad_pods -= live_digests      # pinned by a live peer's save intent
     for d in sorted(bad_pods):
         if store.has_pod(d):
             store.delete_pod(d)
@@ -449,8 +469,7 @@ def fsck(store: BaseStore, *, repair: bool = True, deep: bool = False,
     # its record_commit, or mid-evict between the index CAS and the
     # deletes, leaves exactly this signature).
     if store.get_meta(REFCOUNTS_META_KEY) is not None:
-        raise NotImplementedError(
-            "the refcount index rebuild is not ported yet: ROADMAP queue "
-            "1, version/refcount.py item")
+        from .refcount import RefcountIndex    # circular-free: runtime
+        rep.refcounts_rebuilt = RefcountIndex(store).rebuild()
     rep.t_repair = _time.perf_counter() - t0
     return rep

@@ -292,28 +292,12 @@ def test_versioning_surface():
     assert ck.close() == []
 
 
-@pytest.mark.parametrize("kw", [dict(async_mode=True),
-                                dict(multi_writer=True),
-                                dict(delta_chains=True),
-                                dict(refcounts=True)])
-def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
-        Chipmink(MemoryStore(), device="cpu", **kw)
-
-
-@pytest.mark.parametrize("method", ["checkout", "gc", "diff",
-                                    "evict_branch"])
-def test_unported_methods_raise(method):
-    ck = Chipmink(MemoryStore(), device="cpu")
-    args = {"checkout": (), "gc": (), "diff": (1, 2), "evict_branch": ("b",)}
-    with pytest.raises(NotImplementedError):
-        getattr(ck, method)(*args[method])
-
-
-def test_tensor_on_other_device_raises():
-    ck = Chipmink(MemoryStore(), device="cpu")
+@pytest.mark.parametrize("async_mode", [False, True])
+def test_tensor_on_other_device_raises(async_mode):
+    ck = Chipmink(MemoryStore(), device="cpu", async_mode=async_mode)
     with pytest.raises(ValueError):
         ck.save({"w": torch.zeros(8, device="meta")})
+    assert not ck.saver.busy and ck.save_stats == []
 
 
 def test_stats_manifest_is_msgpack_clean():
