@@ -12,9 +12,10 @@ Phases (each raises on failure; the script then exits non-zero):
      bit-exact, on a sweep of (C, W) shapes (W % 4 != 0, all-0xFFFFFFFF
      words, and views whose rows start 4, 8 or 12 bytes past a 16-byte
      boundary among them) and on every bucket shape the later phases give
-     them, at 24 layers and at 2; time K1
+     them, at 24 layers and at 2, and phase 9's serving buckets (read from
+     the port's planner); time K1
      (fused digest-and-compare) and its plain version at phase 2's bucket
-     shapes, and K2 in turns with K1 there.
+     shapes and at the serving buckets, and K2 in turns with K1 there.
   2. The main path at full width: `Chipmink(MemoryStore(), device="cuda")`
      with all defaults saves a Qwen1.5-0.5B AdamW training state (random
      values from --seed; 4.64 GB on the card at 24 layers): one bootstrap
@@ -59,6 +60,24 @@ Phases (each raises on failure; the script then exits non-zero):
      mark-and-sweep frees; a torn pod mid-save from `FaultyStore`, then a
      deep fsck on reopen (every surviving commit loads bit-exact).
   8. Numbers: per-save stage times, per-kernel times against their bound.
+  9. Serving at full width (Qwen1.5-0.5B, always 24 layers): (a) the
+     entry point `repro_torch.launch.serve.serve` with 4 sessions x 4
+     requests, 32 generated tokens, 128 cache slots and a snapshot every 8
+     tokens (2 KiB chunks), once synchronous and once with
+     `async_mode=True`: 5 snapshots per session, each session's last
+     snapshot far smaller than its tip, cross-session dedup > 1, the last
+     session evicted with bytes reclaimed; prints decode and stall times,
+     bytes per snapshot, per-stage times of a warm save and peak memory.
+     (b) The same traffic through `SessionService`, `make_decode_step` and
+     `init_model_params`, sync and async: every commit loads back bit-exact
+     against a clone taken at its `save_session`; fetches counted per
+     thread (every save <= 2, exactly 1 where speculation covered the
+     dirty chunks, none in the caller of an async save, which runs under
+     `torch.cuda.set_sync_debug_mode("error")`); `resume_session` on a
+     second service over the same store restores a tip bit-exact and the
+     next save reuses pods; one decode step runs under the sync debug
+     mode, and decode steps are timed by CUDA events.  (c) K1's time at
+     the serving buckets against its bound (phase 1's timing).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device line
@@ -93,6 +112,12 @@ REPO = Path(__file__).resolve().parent
 QWEN1_5_0_5B = dict(layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
                     head_dim=64, d_ff=2816, vocab=151936)
 SPARSE_ROWS = 256         # embedding rows each sparse round trains
+#: phase 9's traffic: `repro_torch.launch.serve.serve`'s defaults but the
+#: session count and the width; snapshots of 2 KiB chunks (serve.py's), so
+#: one token slot of one request of one K or V cache is one chunk
+SERVE = dict(n_sessions=4, n_requests=4, gen_tokens=32, cache_len=128,
+             save_every=8)
+SERVE_CHUNK_BYTES = 1 << 11
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, no sparsity):
 # 3.35 TB/s HBM3 and 67 TFLOP/s float32 outside the tensor cores, which
@@ -152,6 +177,31 @@ def param_specs(cfg: dict):
             (p + ("ffn", "w_down"), (F, E), bf16),
         ]
     return specs
+
+
+def check_param_specs(cfg: dict) -> None:
+    """`param_specs` lists exactly the port's own declaration of the
+    model, `param_defs(get_config("qwen1.5-0.5b"))` at `cfg`'s depth:
+    the same paths, shapes and dtypes (a declared dtype of None is the
+    parameters' bf16)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import api
+    model = get_config("qwen1.5-0.5b")
+    widths = dict(layers=model.n_layers, d_model=model.d_model,
+                  n_heads=model.n_heads, n_kv_heads=model.n_kv_heads,
+                  head_dim=model.hd, d_ff=model.d_ff, vocab=model.vocab)
+    if widths != QWEN1_5_0_5B:
+        raise AssertionError(f"QWEN1_5_0_5B {QWEN1_5_0_5B} is not the "
+                             f"port's config {widths}")
+    model = dataclasses.replace(model, n_layers=cfg["layers"])
+    defs = api(model).param_defs(model)
+    want = sorted(((path, d.shape, d.dtype or torch.bfloat16)
+                   for path, d in defs.items()), key=lambda t: t[0])
+    got = sorted(param_specs(cfg), key=lambda t: t[0])
+    if got != want:
+        raise AssertionError("param_specs differs from the port's "
+                             "param_defs of qwen1.5-0.5b")
 
 
 def _put(tree: dict, path, value) -> None:
@@ -357,18 +407,20 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def phase_kernels(shapes, timed_shapes, gen, device):
+def phase_kernels(shapes, timed, gen, device):
     """Both kernels vs their plain versions, bit-exact on `shapes`, each
     (C, W, offset): the words are a view that starts `offset` words into a
     fresh tensor, so its rows start 4 * offset bytes past a 16-byte
-    boundary.  K1 and its plain version timed at `timed_shapes` (the main
-    path's buckets).  Returns (max abs error per kernel, K1's numbers)."""
+    boundary.  K1 and its plain version timed, and K2 in turns with K1,
+    summed over each group of `timed` ({group: set of (C, W)}: a path's
+    buckets).  Returns (max abs error per kernel, K1's numbers per
+    group)."""
     from repro_torch.kernels import fingerprint as fp
     from repro_torch.kernels import ref
     err = {"fingerprint": 0, "fingerprint_cmp": 0}
-    k1 = dict(ms=0.0, plain_ms=0.0)
-    k2_ms = 0.0                 # K2 at these shapes, for comparison only
-    bound = Bound()
+    k1 = {g: dict(ms=0.0, plain_ms=0.0) for g in timed}
+    k2_ms = {g: 0.0 for g in timed}   # K2 there, for comparison only
+    bound = {g: Bound() for g in timed}
     lo, hi = torch.iinfo(torch.int32).min, torch.iinfo(torch.int32).max
     for C, W, offset in shapes:
         words = torch.randint(lo, hi, (C * W + offset,), generator=gen,
@@ -401,7 +453,8 @@ def phase_kernels(shapes, timed_shapes, gen, device):
                                      f"at {where}")
         if not torch.equal(pm, flip.to(torch.int32)):
             raise AssertionError(f"dirty flags wrong at {where}")
-        if (C, W) in timed_shapes and not offset:
+        for g in (g for g, group in timed.items()
+                  if (C, W) in group and not offset):
             iters = max(3, min(200, int(2e9 // max(C * W * 4, 1))))
             runs = (lambda: fp.fingerprint_words_cmp(words, lengths, prev),
                     lambda: fp.fingerprint_words(words, lengths))
@@ -409,19 +462,20 @@ def phase_kernels(shapes, timed_shapes, gen, device):
             for k in (0, 1, 1, 0):
                 t = cuda_ms(runs[k], iters) / 2
                 if k == 0:
-                    k1["ms"] += t
+                    k1[g]["ms"] += t
                 else:
-                    k2_ms += t
-            k1["plain_ms"] += cuda_ms(
+                    k2_ms[g] += t
+            k1[g]["plain_ms"] += cuda_ms(
                 lambda: ref.fingerprint_words_cmp_ref(words, lengths, prev), 2)
-            bound.add(C, W, compare=True)
+            bound[g].add(C, W, compare=True)
         log(f"[kernels] {where}: K1 and K2 bit-exact with their plain "
             f"versions")
         del words, lengths, plain, prev, d1, d2, m1, pd, pm
-    k1.update(bound_ms=bound.ms, bound_by=bound.by)
-    log(f"[kernels] at the main path's buckets, in turns: K1 {k1['ms']:.4f} "
-        f"ms, K2 (which that path does not run) {k2_ms:.4f} ms, bound "
-        f"{bound.ms:.4f} ms")
+    for g, b in bound.items():
+        k1[g].update(bound_ms=b.ms, bound_by=b.by)
+        log(f"[kernels] at the {g} path's buckets, in turns: K1 "
+            f"{k1[g]['ms']:.4f} ms, K2 (which that path does not run) "
+            f"{k2_ms[g]:.4f} ms, bound {b.ms:.4f} ms ({b.by})")
     return err, k1
 
 
@@ -1139,6 +1193,323 @@ def phase_store_features(cfg: dict, gen: torch.Generator, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: serving
+# --------------------------------------------------------------------------
+
+def serving_bucket_shapes():
+    """(padded_rows, width) of every bucket a full-width session save
+    digests: the port's planner over the session state's tensors (the K/V
+    caches and the cache's position) at 2 KiB chunks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import dtype_name
+    from repro_torch.kernels.batch import plan_leaves
+    from repro_torch.models.transformer import cache_spec
+    spec = cache_spec(get_config("qwen1.5-0.5b"), SERVE["n_requests"],
+                      SERVE["cache_len"])
+    specs = [(f"cache/layers/{i}/{k}", s.shape, dtype_name(s.dtype))
+             for i, lc in spec["layers"].items() for k, s in lc.items()]
+    specs.append(("cache/pos", (), dtype_name(spec["pos"].dtype)))
+    return [(b.padded_rows, b.width)
+            for b in plan_leaves(tuple(specs), SERVE_CHUNK_BYTES).buckets]
+
+
+STAGES = ("t_graph", "t_avf", "t_digest", "t_podding", "t_decide",
+          "t_gather", "t_write")
+
+
+def _mean_stages(stats, stalls=None) -> dict:
+    """Mean stage times of `stats` (seconds) and, given the stalls of
+    sync saves, of the rest of each stall that no stage times (flip
+    tracking between the digest and podding, manifest, refcount index
+    and refs)."""
+    out = {k: sum(s[k] for s in stats) / len(stats) for k in STAGES}
+    if stalls is not None:
+        out["untimed"] = sum(t - sum(s[k] for k in STAGES)
+                             for s, t in zip(stats, stalls)) / len(stats)
+    return out
+
+
+def profile_device(fn, n: int):
+    """(device busy ms, wall ms, device ops) per call of `fn`, over `n`
+    calls under torch.profiler (wall inflated by the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n
+    avgs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in avgs) / 1e3 / n, wall,
+            sum(e.count for e in avgs) / n)
+
+
+def phase_serve(device) -> dict:
+    """9a: the serving entry point at full width, sync and async (see the
+    module docstring, phase 9)."""
+    from repro_torch.kernels import fingerprint as fp
+    from repro_torch.launch.serve import serve
+    n = SERVE["n_sessions"]
+    n_snaps = (8 + SERVE["gen_tokens"]) // SERVE["save_every"]
+    out = {}
+    for async_mode in (False, True):
+        mode = "async" if async_mode else "sync"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fp.reset_launch_counts()
+        res = serve("qwen1.5-0.5b", reduced=False, async_mode=async_mode,
+                    device="cuda", log=False, **SERVE)
+        torch.cuda.synchronize()
+        launches = dict(fp.launches)
+        peak = torch.cuda.max_memory_allocated(device)
+        svc, snaps, fleet = res["service"], res["snap_stats"], res["fleet"]
+        # TimeID order is submission order: round-robin over the sessions
+        if len(snaps) != n * n_snaps:
+            raise AssertionError(f"{mode}: {len(snaps)} snapshots, want "
+                                 f"{n_snaps} per session")
+        written = [[s["bytes_written"] for s in snaps[k::n]]
+                   for k in range(n)]
+        dag = svc.pool[0].versions
+        for k in range(n - 1):        # the last session was evicted
+            ctx = svc.sessions[f"s{k}"]
+            if ctx.n_saves != n_snaps or ctx.head != snaps[-n + k]["time_id"]:
+                raise AssertionError(f"{mode}: session s{k} made "
+                                     f"{ctx.n_saves} saves, head {ctx.head}")
+            tip = sum(svc.store.pod_nbytes(d)
+                      for d in dag.pod_digests_of(ctx.head))
+            if not written[k][-1] < tip / 4:
+                raise AssertionError(f"{mode}: s{k}'s last snapshot wrote "
+                                     f"{written[k][-1]} bytes of a "
+                                     f"{tip}-byte tip")
+        if not written[0][-1] < written[0][0] / 4:
+            raise AssertionError(f"{mode}: s0's last snapshot wrote "
+                                 f"{written[0][-1]} bytes, its first "
+                                 f"{written[0][0]}")
+        if not fleet["dedup_ratio"] > 1:
+            raise AssertionError(f"{mode}: dedup ratio {fleet['dedup_ratio']}")
+        if not res["evict_stats"].bytes_reclaimed > 0:
+            raise AssertionError(f"{mode}: eviction reclaimed nothing")
+        if launches["fingerprint_cmp"] <= 0:
+            raise AssertionError(f"{mode}: serving launched no "
+                                 f"fingerprint_cmp")
+        # stalls in submission order, which is TimeID order
+        warm = [(s, t) for s, t in zip(snaps, svc.save_stalls)
+                if s["n_pods_reused"] > 0]
+        fetches = collections.Counter(
+            s["n_digest_syncs"] + s["n_gather_syncs"] for s in snaps)
+        steps = n * (8 + SERVE["gen_tokens"])
+        log(f"[serve] {mode}: {steps} decode steps and {len(snaps)} "
+            f"snapshots in {res['wall']:.3f} s ({res['wall'] / steps * 1e3:.3f}"
+            f" ms per step, saves included); save stall p50 "
+            f"{fleet['p50_save_stall_s'] * 1e3:.3f} ms, p99 "
+            f"{fleet['p99_save_stall_s'] * 1e3:.3f} ms; dedup "
+            f"{fleet['dedup_ratio']:.4f}x ({fleet['logical_tip_bytes']} "
+            f"logical / {fleet['physical_tip_bytes']} physical tip bytes); "
+            f"evict {fleet['p50_evict_s'] * 1e3:.3f} ms reclaiming "
+            f"{res['evict_stats'].bytes_reclaimed} bytes; peak device "
+            f"memory {peak / 1e9:.3f} GB; kernel launches {launches}")
+        log(f"[serve] {mode}: bytes written per snapshot, by session: "
+            f"{written}; fetches per save body: {dict(fetches)}")
+        log(f"[serve] {mode}: stalls per save (ms): "
+            f"{[round(t * 1e3, 3) for t in svc.save_stalls]}")
+        stats, stalls = zip(*warm)
+        stages = _mean_stages(stats, None if async_mode else stalls)
+        log(f"[serve] {mode}: mean stage times of the {len(warm)} warm saves "
+            f"(s; 'untimed' is the rest of a sync save's stall): "
+            f"{json.dumps(stages)}; last warm save "
+            + json.dumps({k: warm[-1][0][k] for k in (
+                "time_id", "t_graph", "t_digest", "t_podding", "t_gather",
+                "t_write", "n_dirty_chunks", "n_spec_predicted",
+                "n_spec_misses", "pods_written", "n_pods_reused",
+                "bytes_written")}))
+        out[mode] = dict(launches=launches, n_saves=len(snaps), peak=peak,
+                         fleet=fleet, wall=res["wall"], steps=steps,
+                         stages=stages)
+        svc.close()
+        del res, svc
+    return out
+
+
+def phase_sessions(gen, device) -> dict:
+    """9b: the serving traffic through the public modules, every commit
+    checked bit-exact and every fetch counted (see the module docstring,
+    phase 9)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import LGA, MemoryStore
+    from repro_torch.models.model import api, init_model_params
+    from repro_torch.sessions import SessionService
+    from repro_torch.train.serve_step import make_decode_step
+    cfg = get_config("qwen1.5-0.5b")
+    m = api(cfg)
+    params = init_model_params(cfg, gen, device=device)
+    step = make_decode_step(cfg)
+    B, T, n = SERVE["n_requests"], SERVE["cache_len"], SERVE["n_sessions"]
+    n_tokens = 8 + SERVE["gen_tokens"]
+    svc_kw = dict(policy=LGA(), chunk_bytes=SERVE_CHUNK_BYTES, device=device)
+    out = {}
+
+    # one decode step with host syncs turned into errors, then its time
+    cache = m.init_cache(cfg, B, T, device=device)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
+    logits, cache = step(params, cache, tok)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = step(params, cache, tok)
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def decode():
+        nonlocal logits, cache
+        logits, cache = step(params, cache, tok)
+
+    out["decode_ms"] = [cuda_ms(decode, 20) for _ in range(3)]
+    log(f"[sessions] a full-width decode step (B={B}, {T} cache slots) "
+        f"made no host sync under set_sync_debug_mode('error'); "
+        f"{out['decode_ms']} ms per step by CUDA events (3 runs of 20)")
+    busy, wall, n_ops = profile_device(decode, 5)
+    log(f"[trace] decode step under the profiler: device busy "
+        f"{busy:.3f} ms of {wall:.3f} ms wall per step "
+        f"({100 * busy / wall:.1f}%), {n_ops:.0f} device ops per step")
+    del cache, logits
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, size=(B, 7)).astype(np.int32)
+    prompts = [torch.from_numpy(np.concatenate(
+        [shared, rng.integers(0, cfg.vocab, size=(B, 1)).astype(np.int32)],
+        axis=1)).to(device) for _ in range(n)]
+    stores = {}
+    for async_mode in (False, True):
+        mode = "async" if async_mode else "sync"
+        svc = SessionService(MemoryStore(), pool_size=n,
+                             async_mode=async_mode, **svc_kw)
+        caches = [m.init_cache(cfg, B, T, device=device) for _ in range(n)]
+        toks = [None] * n
+        clones, per_save = {}, []
+        caller = threading.get_ident()
+        for k in range(n):
+            svc.open_session(f"s{k}")
+        with FetchesByThread() as fetches:
+            for i in range(n_tokens):
+                for k in range(n):
+                    tok = prompts[k][:, i:i + 1] if i < 8 else toks[k]
+                    logits, caches[k] = step(params, caches[k], tok)
+                    toks[k] = torch.argmax(logits, dim=-1, keepdim=True)\
+                        .to(torch.int32)
+                    if (i + 1) % SERVE["save_every"]:
+                        continue
+                    state = {"cache": caches[k], "cursor": {"pos": i + 1}}
+                    clone = snapshot(state)
+                    f0 = fetches.counts[caller]
+                    if async_mode:
+                        torch.cuda.synchronize()
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        if not async_mode and k == 0 and i + 1 == n_tokens:
+                            busy, wall, n_ops = profile_device(
+                                lambda: svc.save_session("s0", state), 1)
+                            tid = svc.sessions["s0"].head
+                            log(f"[trace] s0's last sync save under the "
+                                f"profiler: device busy {busy:.3f} ms of "
+                                f"{wall:.3f} ms wall ({100 * busy / wall:.2f}"
+                                f"%), {n_ops:.0f} device ops")
+                        else:
+                            tid = svc.save_session(f"s{k}", state)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    per_save.append((k, tid, fetches.counts[caller] - f0))
+                    clones[tid] = clone
+            for ck in svc.pool:
+                ck.wait()
+        torch.cuda.synchronize()
+        stats = {s["time_id"]: s for ck in svc.pool for s in ck.save_stats}
+        counts = {"1 fetch": 0, "2 fetches": 0}
+        covered = 0
+        for k, tid, caller_fetches in per_save:
+            s = stats[tid]
+            body = s["n_digest_syncs"] + s["n_gather_syncs"]
+            if (async_mode and caller_fetches) or \
+                    (not async_mode and caller_fetches != body):
+                raise AssertionError(f"{mode} save {tid}: {caller_fetches} "
+                                     f"fetches in the caller, stats {body}")
+            if not 1 <= body <= 2:
+                raise AssertionError(f"{mode} save {tid}: {body} fetches")
+            counts["1 fetch" if body == 1 else "2 fetches"] += 1
+            if s["n_pods_reused"] > 0 and s["n_spec_misses"] == 0:
+                covered += 1
+                if body != 1:
+                    raise AssertionError(f"{mode} save {tid}: speculation "
+                                         f"covered it, {body} fetches")
+        body_total = sum(c for th, c in fetches.counts.items()
+                         if th != caller)
+        want_body = sum(s["n_digest_syncs"] + s["n_gather_syncs"]
+                        for s in stats.values()) if async_mode else 0
+        if body_total != want_body:
+            raise AssertionError(f"{mode}: bodies fetched {body_total} "
+                                 f"times, their stats count {want_body}")
+        t0 = time.perf_counter()
+        for tid, clone in clones.items():
+            got = svc.pool[0].load(time_id=tid)
+            bit_equal(got, clone)
+            del got
+        t_load = time.perf_counter() - t0
+        prefix = all(torch.equal(caches[0]["layers"][i][kv][:, :7],
+                                 caches[k]["layers"][i][kv][:, :7])
+                     for k in range(1, n) for i in caches[0]["layers"]
+                     for kv in ("k", "v"))
+        tables = sum(t.numel() * t.element_size()
+                     for ctx in svc.sessions.values()
+                     for t in ctx.detector._dev_table.digs)
+        log(f"[sessions] {mode}: {len(per_save)} saves, fetches per save "
+            f"{counts} ({covered} warm saves covered by speculation, each "
+            f"1 fetch), caller fetches "
+            f"{'0 under set_sync_debug_mode(error)' if async_mode else 'as the stats'}"
+            f"; all {len(clones)} commits load back bit-exact "
+            f"({t_load:.3f} s); the 7-token prefix's KV is bit-identical "
+            f"across sessions: {prefix}; device digest tables of the "
+            f"{len(svc.sessions)} sessions: {tables} bytes")
+        out[mode] = dict(counts=counts, covered=covered, prefix=prefix,
+                         tables=tables)
+        stores[mode] = (svc, clones, per_save, caches, toks)
+
+    # migration: a second service over the sync service's store
+    svc, clones, per_save, caches, toks = stores["sync"]
+    tip = svc.sessions["s1"].head
+    other = SessionService(svc.store, pool_size=1, **svc_kw)
+    t0 = time.perf_counter()
+    state = other.resume_session("s1")
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    bit_equal(state, clones[tip])
+    cs = other.sessions["s1"].last_checkout_stats
+    logits, state["cache"] = step(params, state["cache"], toks[1])
+    state["cursor"]["pos"] += 1
+    want = snapshot(state)
+    with FetchesByThread() as fetches:
+        tid = other.save_session("s1", state)
+    s = other.pool[0].save_stats[-1]
+    n_f = sum(fetches.counts.values())
+    if s["n_pods_reused"] <= 0 or not 1 <= n_f <= 2 or \
+            other.store.get_manifest(tid)["parent"] != tip:
+        raise AssertionError(f"save after resume: {n_f} fetches, {s}")
+    bit_equal(other.pool[0].load(time_id=tid), want)
+    log(f"[sessions] resume_session('s1') on a second service: tip {tip} "
+        f"bit-exact in {t_resume:.3f} s ({cs.n_pods_fetched} of "
+        f"{cs.n_pods} pods read, {cs.read_bytes} bytes); the next save "
+        f"made {n_f} fetch(es), reused {s['n_pods_reused']} pods, wrote "
+        f"{s['pods_written']} and loads back bit-exact")
+    for svc, *_ in stores.values():
+        svc.close()
+    other.close()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1171,8 +1542,10 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     cfg = dict(QWEN1_5_0_5B, layers=args.layers)
+    check_param_specs(cfg)
     chunk_bytes = 1 << 22
     main_shapes = bucket_shapes(cfg, chunk_bytes)
+    serve_shapes = serving_bucket_shapes()
     small = dict(cfg, layers=2)
     sweep = [(1, 1, 0), (3, 4096, 0), (2, 5000, 0), (7, 1, 0), (64, 128, 0),
              (64, 4096, 0), (1, 1 << 20, 0), (64, 1 << 20, 0), (1, 3, 0),
@@ -1180,13 +1553,18 @@ def main(argv=None) -> int:
              (70000, 128, 0), (1, 1 << 20, 1), (3, 4096, 2), (5, 1 << 16, 3),
              (9, 4099, 3), (2, 7, 1), (1, 2, 1)]
     # every bucket shape a path gives the kernels: the 24-layer main,
-    # async and checkout phases', and the 2-layer phases'
+    # async and checkout phases', the 2-layer phases' and serving's
     shapes = list(sweep)
-    for C, W in main_shapes + bucket_shapes(small, chunk_bytes):
+    for C, W in (main_shapes + bucket_shapes(small, chunk_bytes)
+                 + serve_shapes):
         if (C, W, 0) not in shapes:
             shapes.append((C, W, 0))
-    err, k1 = phase_kernels(shapes, set(main_shapes), gen, device)
-    log(f"[kernels] main-path bucket shapes {main_shapes}")
+    err, k1_by_path = phase_kernels(
+        shapes, {"main": set(main_shapes), "serving": set(serve_shapes)},
+        gen, device)
+    k1 = k1_by_path["main"]
+    log(f"[kernels] main-path bucket shapes {main_shapes}; serving bucket "
+        f"shapes {serve_shapes}")
 
     main = phase_main(cfg, gen, device)
     rung_launches, k2 = phase_rungs(small, gen, device)
@@ -1194,18 +1572,33 @@ def main(argv=None) -> int:
     phase_async(cfg, gen, device)
     phase_checkout(cfg, gen, device)
     phase_store_features(small, gen, device)
+    served = phase_serve(device)
+    phase_sessions(gen, device)
 
-    # the main path (phase 2) runs K1; K2 runs on the fused=False and
-    # batched=False rungs (phase 3), each read just after its own run.
-    launches = {"fingerprint_cmp": main["launches"]["fingerprint_cmp"],
+    # the main path (phase 2) and serving (phase 9a, sync and async) run
+    # K1; K2 runs on the fused=False and batched=False rungs (phase 3),
+    # each read just after its own run.
+    serving = {mode: r["launches"]["fingerprint_cmp"]
+               for mode, r in served.items()}
+    launches = {"fingerprint_cmp": main["launches"]["fingerprint_cmp"]
+                + sum(serving.values()),
                 "fingerprint": rung_launches["fingerprint"]}
-    log(f"[numbers] fingerprint_cmp launches per main-path save: "
-        f"{launches['fingerprint_cmp'] / main['n_saves']}")
+    log(f"[numbers] fingerprint_cmp launches: "
+        f"{main['launches']['fingerprint_cmp']} on the main path "
+        f"({main['launches']['fingerprint_cmp'] / main['n_saves']} per "
+        f"save), {serving} serving "
+        f"({serving['sync'] / served['sync']['n_saves']} per session save)")
+    ks = k1_by_path["serving"]
+    log(f"[numbers] fingerprint_cmp at the serving buckets {serve_shapes}: "
+        f"{ks['ms']:.4f} ms per session save, bound {ks['bound_ms']:.4f} ms "
+        f"({ks['bound_by']}), {100 * ks['bound_ms'] / ks['ms']:.1f}% of it; "
+        f"plain version {ks['plain_ms']:.4f} ms")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on its path")
     times = {"fingerprint_cmp": k1, "fingerprint": k2}
-    where = {"fingerprint_cmp": "over the main path's buckets",
+    where = {"fingerprint_cmp": "over the main path's buckets (launches: "
+                                "main path and serving)",
              "fingerprint": "over one save of each of the fused=False and "
                             "batched=False rungs"}
     k2["max_abs_err"] = max(k2["max_abs_err"], err["fingerprint"])

@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no `repro`, no silent CPU carry-on."""
+"""The port stands alone: no JAX, no `ml_dtypes`, no `repro`, no silent
+CPU carry-on."""
 import os
 import re
 import subprocess
@@ -18,7 +19,7 @@ import repro_torch
 for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or m == "repro" or m.startswith("repro."))
 print("BAD=" + ",".join(bad))
 """
@@ -33,7 +34,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, env=env,
                          timeout=120, check=True).stdout
     assert "BAD=\n" in out, out
-    assert len(SUBMODULES) >= 20
+    assert len(SUBMODULES) >= 43
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
@@ -54,3 +55,9 @@ def test_chipmink_without_cuda_raises(monkeypatch):
         Chipmink(MemoryStore())
     with pytest.raises(RuntimeError, match="CUDA"):
         Chipmink(MemoryStore(), device="cuda:0")
+    from repro_torch.launch.serve import serve
+    from repro_torch.sessions import SessionService
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionService(MemoryStore())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("qwen1.5-0.5b", log=False)
