@@ -14,8 +14,9 @@ hashing.  This module amortizes all of it across the whole object graph:
     so bucket padding is digest-neutral.  Row counts are padded to a
     power of two so bucket shapes repeat across saves.  Plans equal the
     reference package's field for field.
-  * **Packer** — plain tensor copies: every leaf's int32 word stream is
-    written onto its rows of a zeroed (padded_rows, width) bucket matrix.
+  * **Packer** (``fused=False`` rung only) — plain tensor copies: every
+    leaf's int32 word stream is written onto its rows of a zeroed
+    (padded_rows, width) bucket matrix.
   * **Dispatch** — one kernel launch per bucket
     (`fingerprint.fingerprint_words`).
   * **Fetch** — all (C, 4) digest rows of all buckets leave the device in
@@ -23,19 +24,25 @@ hashing.  This module amortizes all of it across the whole object graph:
     single-sync contract; `DigestResult.n_syncs` reports it).
 
 The **fused single-sync** path (`digest_leaves_fused`) goes one step
-further: the previous save's digest table stays *resident on the device*
-(`DeviceTable` — per-bucket (padded_rows, 4) tensors in slot order), the
-compare-against-previous runs inside the bucket kernel
-(`fingerprint.fingerprint_words_cmp` emits digests **plus** a dirty flag
-per row), and an `index_select` compacts the packed word rows of likely-
-dirty chunks into dense per-bucket payload buffers — so digests, dirty
-flags and dirty-chunk payload all come back in **one** fetch.  Because
-rows are packed little-endian word streams and chunk boundaries are
-4-byte aligned (`core.graph.chunk_grid`), a fetched row's first
-`true_length` bytes ARE the chunk's payload bytes.  In the steady state
-the device table is the previous save's own kernel output; when the plan
-changes or the table was imported, it is re-seeded from the host table
-with non-blocking uploads — never a blocking fetch.
+further and packs nothing: K1 (`fingerprint.fingerprint_leaves_cmp`)
+reads every chunk where it lies in its leaf, through a row table built
+once per plan (`_plan_rows`: each slot row's leaf, word offset, whole
+words, valid bytes of a last partial word, true byte length; padded rows
+hold no words), in one launch over all buckets.  The previous save's
+digest table stays *resident on the device* (`DeviceTable` — one flat
+(sum of padded_rows, 4) tensor in slot order, viewed per bucket), the
+kernel compares against it and emits a dirty flag per row, and it copies
+the rows of likely-dirty chunks into a dense payload buffer at offsets
+the host chose — so digests, dirty flags and dirty-chunk payload all
+come back in **one** fetch.  Rows are little-endian word streams of the
+leaves' own bytes and chunk boundaries are 4-byte aligned
+(`core.graph.chunk_grid`), so a fetched row's first `true_length` bytes
+ARE the chunk's payload bytes.  The only per-save upload is the leaves'
+base addresses (and the payload offsets when rows are speculated).  In
+the steady state the device table is the previous save's own kernel
+output; when the plan changes or the table was imported, it is re-seeded
+from the host table with one non-blocking upload — never a blocking
+fetch.
 
 Host (numpy) leaves run through the same planner with the numpy digest
 twin and cost no sync.  Device leaves must lie on the caller's device;
@@ -55,7 +62,9 @@ import numpy as np
 import torch
 
 from ..core.graph import ObjectGraph, chunk_grid, dtype_name, itemsize_of
-from .fingerprint import fingerprint_words, fingerprint_words_cmp
+from .fingerprint import (RowTable, fingerprint_leaves_cmp,
+                          fingerprint_words, leaf_mis, payload_slots,
+                          readable_leaf)
 from .ops import (fetch_to_host, is_host_array, to_device, to_words,
                   to_words_np)
 from .ref import fingerprint_words_np
@@ -163,6 +172,12 @@ def _plan_slots(plan: BatchPlan) -> Tuple[Tuple[str, ...],
 
 
 @functools.lru_cache(maxsize=512)
+def _plan_row_of(plan: BatchPlan) -> Dict[str, int]:
+    """Chunk key -> its row among the plan's real rows (slot order)."""
+    return {k: r for r, k in enumerate(_plan_slots(plan)[0])}
+
+
+@functools.lru_cache(maxsize=512)
 def _plan_lengths(plan: BatchPlan) -> Tuple[np.ndarray, ...]:
     """Per-bucket true-byte-length columns (padded rows fold length 0)."""
     out = {b.width: np.zeros((b.padded_rows,), np.uint32)
@@ -181,6 +196,29 @@ def _plan_lengths_on(plan: BatchPlan,
     """`_plan_lengths` as int32 tensors on `device` (uploaded once)."""
     return tuple(to_device(lens.view(np.int32), device)
                  for lens in _plan_lengths(plan))
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_rows(plan: BatchPlan) -> RowTable:
+    """K1's row table of `plan`: every slot row (bucket-major, padded rows
+    included) as (leaf index in plan order, word offset of its chunk in
+    the leaf, whole words, valid bytes of a last partial word, true byte
+    length).  Padded rows hold no words and fold length 0."""
+    base: Dict[int, int] = {}
+    off = 0
+    for b in plan.buckets:
+        base[b.width] = off
+        off += b.padded_rows
+    leaf = np.zeros(off, np.int64)
+    word_off = np.zeros(off, np.int64)
+    lengths = np.concatenate(_plan_lengths(plan)).astype(np.int64)
+    for li, s in enumerate(plan.leaves):
+        r0 = base[s.bucket] + s.row0
+        leaf[r0:r0 + s.n_chunks] = li
+        word_off[r0:r0 + s.n_chunks] = (np.arange(s.n_chunks, dtype=np.int64)
+                                        * s.words_per_chunk)
+    return RowTable(leaf=leaf, word_off=word_off, nfull=lengths // 4,
+                    part=lengths % 4, lengths=lengths.astype(np.uint32))
 
 
 def _pack(plan: BatchPlan, arrays: Sequence[torch.Tensor],
@@ -245,37 +283,50 @@ class FusedDigestResult(DigestResult):
 class DeviceTable:
     """Previous digest table resident on the device, in bucket-slot order.
 
-    In the steady state `digs` are the previous save's own kernel output
-    tensors (never re-uploaded); `valid` flags the rows whose previous
-    digest is real — a row seeded without a host entry compares against
-    zeros and is forced dirty by the caller.
+    `flat` is one int32 (sum of padded_rows, 4) tensor, in the steady
+    state the previous save's own kernel output (never re-uploaded);
+    `digs` are its per-bucket views.  `valid` flags the rows whose
+    previous digest is real — a row seeded without a host entry compares
+    against zeros and is forced dirty by the caller.
     """
     plan: BatchPlan
+    flat: torch.Tensor                 # int32 (sum of padded_rows, 4)
     digs: List[torch.Tensor]           # per bucket: int32 (padded_rows, 4)
     valid: List[np.ndarray]            # per bucket: bool (n_rows,)
+
+
+def _bucket_views(plan: BatchPlan, flat: torch.Tensor) -> List[torch.Tensor]:
+    out = []
+    off = 0
+    for b in plan.buckets:
+        out.append(flat[off:off + b.padded_rows])
+        off += b.padded_rows
+    return out
 
 
 def seed_device_table(plan: BatchPlan, lookup,
                       device: torch.device) -> DeviceTable:
     """Build the device-resident previous-digest table for `plan` from a
     host digest lookup (chunk key -> 16-byte digest, or None when never
-    seen).  One non-blocking upload per bucket — no blocking sync."""
+    seen).  One non-blocking upload — no blocking sync."""
     keys, _ = _plan_slots(plan)
-    digs: List[torch.Tensor] = []
+    mat = np.zeros((sum(b.padded_rows for b in plan.buckets), 4), np.uint32)
     valid: List[np.ndarray] = []
-    off = 0
+    off = 0        # real rows before this bucket (keys)
+    row = 0        # slot rows before this bucket (mat)
     for b in plan.buckets:
-        mat = np.zeros((b.padded_rows, 4), np.uint32)
         v = np.zeros((b.n_rows,), bool)
         for r in range(b.n_rows):
             d = lookup(keys[off + r])
             if d is not None:
-                mat[r] = np.frombuffer(d, np.uint32)
+                mat[row + r] = np.frombuffer(d, np.uint32)
                 v[r] = True
-        digs.append(to_device(mat.view(np.int32), device))
         valid.append(v)
         off += b.n_rows
-    return DeviceTable(plan=plan, digs=digs, valid=valid)
+        row += b.padded_rows
+    flat = to_device(mat.view(np.int32), device)
+    return DeviceTable(plan=plan, flat=flat, digs=_bucket_views(plan, flat),
+                       valid=valid)
 
 
 def _split(items: Sequence[Tuple[str, Any]], device: Optional[torch.device]
@@ -371,47 +422,42 @@ def digest_leaves(items: Sequence[Tuple[str, Any]], *, chunk_bytes: int,
 
 
 def _digest_device_fused(plan: BatchPlan, arrays: Sequence[torch.Tensor], *,
-                         seed: int, device: torch.device,
-                         table: DeviceTable,
-                         spec_local: Dict[int, np.ndarray]):
-    """Fused per-bucket digest+compare plus speculative row compaction.
+                         seed: int, table: DeviceTable,
+                         spec_rows: np.ndarray):
+    """K1 over the leaves in place: digest+compare of every slot row plus
+    the payload of the speculated rows (`spec_rows`, slot-row indices).
 
-    Returns (digest mats, dirty masks, {bucket idx: fetched spec rows as
-    uint8 (n, width*4)}, new DeviceTable) after exactly ONE
-    `fetch_to_host` covering all three result classes.
+    Returns (digest mats, dirty masks, payload bytes of each spec row in
+    order, new DeviceTable) after exactly ONE `fetch_to_host` covering
+    all three.
     """
-    packed = _pack(plan, arrays, device)
-    lengths = _plan_lengths_on(plan, device)
-    digs_dev: List[torch.Tensor] = []
-    masks_dev: List[torch.Tensor] = []
-    spec_dev: List[Tuple[int, torch.Tensor]] = []
-    for bi, (words, lens) in enumerate(zip(packed, lengths)):
-        d, m = fingerprint_words_cmp(words, lens, table.digs[bi], seed=seed)
-        digs_dev.append(d)
-        masks_dev.append(m)
-        rows = spec_local.get(bi)
-        if rows is not None and len(rows):
-            # compaction: gather the packed word rows of the speculated
-            # chunks into one dense (n_spec, width) buffer.  Rows are
-            # already the chunk's word stream, so the buffer IS the
-            # payload (true byte lengths slice off padding on the host).
-            spec_dev.append((bi, words.index_select(0, to_device(rows,
-                                                                 device))))
-    host = fetch_to_host(digs_dev + masks_dev
-                         + [m for _, m in spec_dev])   # the ONE sync
-    nb = len(plan.buckets)
-    dig_mats = [h.view(np.uint32).reshape(-1, 4)[:b.n_rows]
-                for b, h in zip(plan.buckets, host[:nb])]
-    masks = [h.view(np.uint32)[:b.n_rows].astype(np.uint8)
-             for b, h in zip(plan.buckets, host[nb:2 * nb])]
-    spec_rows = {bi: h.reshape(-1, plan.buckets[bi].width * 4)
-                 for (bi, _), h in zip(spec_dev, host[2 * nb:])}
+    rows = _plan_rows(plan)
+    leaves = [readable_leaf(a) for a in arrays]
+    slots = (payload_slots(rows, leaf_mis(leaves), spec_rows)
+             if spec_rows.size else None)
+    digs, dirty, payload = fingerprint_leaves_cmp(leaves, rows, table.flat,
+                                                  slots, seed=seed)
+    fetched = [digs, dirty] + ([payload] if payload.numel() else [])
+    host = fetch_to_host(fetched)                      # the ONE sync
+    dig_host = host[0].view(np.uint32).reshape(-1, 4)
+    dirty_host = host[1].view(np.uint32)
+    dig_mats, masks = [], []
+    off = 0
+    for b in plan.buckets:
+        dig_mats.append(dig_host[off:off + b.n_rows])
+        masks.append(dirty_host[off:off + b.n_rows].astype(np.uint8))
+        off += b.padded_rows
+    spec_bytes = []
+    if len(host) > 2:
+        starts = (slots[spec_rows].astype(np.int64) * 4).tolist()
+        spec_bytes = [host[2][a:a + n] for a, n in
+                      zip(starts, rows.lengths[spec_rows].tolist())]
     # padded digest rows stay on the device as the next save's prev
     # table: every digested row is now trusted.
     new_table = DeviceTable(
-        plan=plan, digs=digs_dev,
+        plan=plan, flat=digs, digs=_bucket_views(plan, digs),
         valid=[np.ones((b.n_rows,), bool) for b in plan.buckets])
-    return dig_mats, masks, spec_rows, new_table
+    return dig_mats, masks, spec_bytes, new_table
 
 
 def digest_leaves_fused(items: Sequence[Tuple[str, Any]], *,
@@ -425,9 +471,9 @@ def digest_leaves_fused(items: Sequence[Tuple[str, Any]], *,
 
     Tensor leaves run the fused digest+compare kernel against the
     device-resident previous table (`table` when its plan matches this
-    call's leaf specs, else re-seeded from `lookup`), with the packed
-    rows of `spec_keys` chunks compacted into the same fetch — ONE
-    blocking `fetch_to_host` total.  Host leaves take the numpy twin
+    call's leaf specs, else re-seeded from `lookup`), reading every leaf
+    in place, with the bytes of the `spec_keys` chunks copied out into
+    the same fetch — ONE blocking `fetch_to_host` total.  Host leaves take the numpy twin
     (dirty = -1: the caller's host compare decides).
 
     Returns (result, new device table to carry to the next save).
@@ -450,52 +496,30 @@ def digest_leaves_fused(items: Sequence[Tuple[str, Any]], *,
         plan_keys, plan_offsets = _plan_slots(plan)
         if is_dev:
             if (table is None or table.plan is not plan
-                    or table.digs[0].device != device):
+                    or table.flat.device != device):
                 # plan changed (or table imported/never built): re-seed
                 # from the host table; rows it has never seen compare
                 # against zeros and are forced dirty below.
                 table = seed_device_table(
                     plan, lookup if lookup is not None else lambda k: None,
                     device)
-            # speculated chunk keys -> (bucket, local row)
-            spec_local: Dict[int, List[int]] = {}
-            bucket_base: List[int] = []
-            off = 0
-            for b in plan.buckets:
-                bucket_base.append(off)
-                off += b.n_rows
-            if spec_keys:
-                row_of = {k: r for r, k in enumerate(plan_keys)}
-                for k in spec_keys:
-                    r = row_of.get(k)
-                    if r is None:
-                        continue
-                    for bi in range(len(plan.buckets) - 1, -1, -1):
-                        if r >= bucket_base[bi]:
-                            spec_local.setdefault(bi, []).append(
-                                r - bucket_base[bi])
-                            break
-            spec_arr = {bi: np.asarray(sorted(rows), np.int64)
-                        for bi, rows in spec_local.items()}
-            # pad each gather to a power-of-two row count (repeating the
-            # first row) so gather shapes repeat when the speculation set
-            # fluctuates; extra rows are fetched and dropped (payload
-            # extraction walks only the real rows).
-            spec_padded = {
-                bi: np.concatenate(
-                    [r, np.full(pow2ceil(len(r)) - len(r), r[0], np.int64)])
-                for bi, r in spec_arr.items()}
-            dig_mats, masks, spec_fetched, new_table = _digest_device_fused(
-                plan, arrays, seed=seed, device=device, table=table,
-                spec_local=spec_padded)
+            # speculated chunk keys -> slot rows: real row i of bucket b
+            # is slot row i + (padded rows of the buckets before b)
+            row_of = _plan_row_of(plan)
+            spec = [(row_of[k], k) for k in spec_keys if k in row_of]
+            real = np.asarray([r for r, _ in spec], np.int64)
+            real_base = np.cumsum([0] + [b.n_rows for b in plan.buckets])
+            pad = np.cumsum([0] + [b.padded_rows - b.n_rows
+                                   for b in plan.buckets])
+            slot_rows = real + pad[np.searchsorted(real_base, real,
+                                                   side="right") - 1]
+            order = np.argsort(slot_rows)
+            dig_mats, masks, spec_bytes, new_table = _digest_device_fused(
+                plan, arrays, seed=seed, table=table,
+                spec_rows=slot_rows[order])
             n_syncs += 1
-            lengths = _plan_lengths(plan)
-            for bi, rows in spec_arr.items():
-                fetched = spec_fetched[bi]
-                lens = lengths[bi]
-                for i, r in enumerate(rows):
-                    key = plan_keys[bucket_base[bi] + int(r)]
-                    payload[key] = fetched[i, :int(lens[r])].tobytes()
+            for i, b in zip(order.tolist(), spec_bytes):
+                payload[spec[i][1]] = b.tobytes()
             for bi, (b, m) in enumerate(zip(plan.buckets, masks)):
                 d = m.astype(np.int8)
                 d[~table.valid[bi]] = 1      # no trusted prev: dirty

@@ -116,6 +116,66 @@ def fingerprint_words_cmp_ref(words: torch.Tensor, lengths: torch.Tensor,
     return dig, dirty
 
 
+def _row_words(flat: torch.Tensor, off: int, nfull: int,
+               part: int) -> torch.Tensor:
+    """One row read in place: `nfull` whole words and `part` valid bytes
+    of one more word, from word `off` of a leaf's bytes `flat` (uint8),
+    zero above the valid bytes.  int32 (nwords,)."""
+    b = flat[off * 4:off * 4 + nfull * 4 + part]
+    if part:
+        b = torch.cat([b, b.new_zeros(4 - part)])
+    return b.view(torch.int32)
+
+
+def fingerprint_leaves_cmp_ref(leaves, table, prev: torch.Tensor,
+                               spec_slots=None, seed: int = 0):
+    """Plain fused digest-and-compare over leaves read in place through a
+    row table (`fingerprint.RowTable`): row c is `table.nfull[c]` whole
+    words and `table.part[c]` valid bytes of one more, from word
+    `table.word_off[c]` of leaf `table.leaf[c]`; its digest folds
+    `table.lengths[c]`.  `leaves` are contiguous tensors whose bytes start
+    on a 4-byte boundary (`fingerprint.readable_leaf`).  Returns
+    (digests int32 (N, 4), dirty int32 (N,), payload int32), the payload
+    holding the words of each row whose `spec_slots` entry (uint32 word
+    offset, 0xFFFFFFFF for none) is set, at that offset, and zeros
+    elsewhere."""
+    device = prev.device
+    N = table.n_rows
+    flats = [t.reshape(-1).view(torch.uint8) for t in leaves]
+    nwords = table.nwords
+    lengths = torch.from_numpy(table.lengths.astype(np.uint32)
+                               .view(np.int32)).to(device)
+    dig = torch.empty((N, DIGEST_WORDS), dtype=torch.int32, device=device)
+    payload = None
+    if spec_slots is not None:
+        spec = np.flatnonzero(spec_slots != MASK32)
+        n = int((spec_slots[spec].astype(np.int64) + nwords[spec]).max()) \
+            if spec.size else 0
+        payload = torch.zeros((n,), dtype=torch.int32, device=device)
+    for w in np.unique(nwords):
+        rows = np.flatnonzero(nwords == w)
+        step = max(1, _REF_BLOCK_ELEMS // max(int(w), 1))
+        for r0 in range(0, rows.size, step):
+            batch = rows[r0:r0 + step]
+            words = [_row_words(flats[table.leaf[c]], int(table.word_off[c]),
+                                int(table.nfull[c]), int(table.part[c]))
+                     for c in batch]
+            mat = (torch.stack(words) if w else
+                   torch.zeros((batch.size, 0), dtype=torch.int32,
+                               device=device))
+            idx = torch.from_numpy(batch).to(device)
+            dig[idx] = fingerprint_words_ref(mat, lengths[idx], seed=seed)
+            if payload is not None:
+                for c, row in zip(batch, words):
+                    slot = int(spec_slots[c])
+                    if slot != MASK32:
+                        payload[slot:slot + row.numel()] = row
+    dirty = (dig != prev).any(dim=1).to(torch.int32)
+    if payload is None:
+        payload = torch.zeros((0,), dtype=torch.int32, device=device)
+    return dig, dirty, payload
+
+
 # --------------------------------------------------------------------------
 # numpy twin (host-side state)
 # --------------------------------------------------------------------------
