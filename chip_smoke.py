@@ -39,8 +39,10 @@ Phases (each raises on failure; the script then exits non-zero):
      (the bucket matrices, and each leaf's chunk rows) are rebuilt from
      the state, held against the plain version bit-exact, and timed per
      save by CUDA events; torch.profiler's kernel records give K2's device
-     time per launch and its share of the byte bound for each distinct
-     shape, apart from the host's cost of launching it.
+     time per launch and its share of the byte bound at every distinct
+     shape, apart from the host's cost of launching it: each shape in a
+     window of its own after a discarded warm-up window, averaged over the
+     records kept; a shape with no sound window fails the phase.
   4. A `FileStore` round trip at 2 layers, reopened by a fresh instance.
   5. Async saves at full width: `Chipmink(async_mode=True)` takes a
      bootstrap save and 4 sparse rounds, each `save()` followed at once by
@@ -86,6 +88,30 @@ Phases (each raises on failure; the script then exits non-zero):
      next save reuses pods; one decode step runs under the sync debug
      mode, and decode steps are timed by CUDA events.  (c) K1's time at
      the serving plan against its bound (phase 1's timing).
+ 10. Training at full width (Qwen1.5-0.5B, 24 layers, 4.64 GB train state,
+     8 x 128 tokens per step, 256 KiB chunks), through the entry point
+     `repro_torch.launch.train.train(..., reduced=False, device="cuda")`,
+     each step timed by CUDA events, each `save()` call timed (an async
+     one under `set_sync_debug_mode("error")`) and every fetch counted per
+     thread.  (a) 8 steps, a save every 4, async: losses finite, the
+     last commit loads back bit-exact, 0 fetches in the caller and <= 2
+     per save body; then K1 on the training plan (the final state's real
+     leaves) bit-exact against its plain version and timed against its
+     bound, with its wrapper's host time; then the step must descend: 8
+     steps at lr 1e-4 on one fixed batch from a fresh init lower the loss
+     (at the trainer's lr of 1e-3, the reference's, the full-width loss
+     rises step after step, in the reference too: `experiments/
+     train_trend.py --layers 12`), and
+     one step runs under torch.profiler (device busy share).  (b) The same
+     with the embedding and layers 0-21 frozen: the static checker's
+     read-only set is exactly the frozen parameters, the second save skips
+     them (active leaves, < 30% of the bootstrap's bytes, K1's real rows
+     down by theirs).  (c) 4 steps with a sync save, a load of the newest
+     commit, the state rebuilt on the card and the cursor restored, 4
+     more: losses within rtol=atol=1e-4 of (a)'s 8.  (d) At 2 layers,
+     `TrainingSupervisor` (a save every 3, async) over 8 steps with a
+     failure injected at step 5 resumes from the step-3 commit and ends at
+     step 8.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device line
@@ -127,6 +153,10 @@ SPARSE_ROWS = 256         # embedding rows each sparse round trains
 SERVE = dict(n_sessions=4, n_requests=4, gen_tokens=32, cache_len=128,
              save_every=8)
 SERVE_CHUNK_BYTES = 1 << 11
+#: phase 10's training runs: `repro_torch.launch.train.train`'s defaults
+#: (8 x 128 tokens per step, 256 KiB chunks) for 8 steps, saving every 4
+TRAIN = dict(steps=8, save_every=4, global_batch=8, seq_len=128)
+TRAIN_CHUNK_BYTES = 1 << 18
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, no sparsity):
 # 3.35 TB/s HBM3 and 67 TFLOP/s float32 outside the tensor cores, which
@@ -424,6 +454,36 @@ class Bound:
                 > self.bytes / HBM_BYTES_PER_S else "bytes")
 
 
+def device_records(run, names) -> dict:
+    """torch.profiler's device records of the kernels whose names contain
+    each of `names`, over one call of `run` (which launches them): the
+    profiler first traces a warm-up call of `run` and discards it, then
+    keeps the next (`schedule(warmup=1, active=1)`), since a window's
+    first launches can go unrecorded.  {name: (records kept, mean device
+    us per record)}; a record is one launch's own device time.  The
+    profiler may still drop part or all of a window: callers retake it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kept = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.append(p.key_averages())) \
+            as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    total = {name: [0, 0.0] for name in names}
+    for e in (kept[-1] if kept else []):
+        for name in names:
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                total[name][0] += e.count
+                total[name][1] += e.self_device_time_total
+    return {name: (n, us / n if n else None)
+            for name, (n, us) in total.items()}
+
+
 def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != "
@@ -555,12 +615,11 @@ def check_inplace(name: str, items, chunk_bytes: int, gen, device) -> int:
 
 def time_inplace(name: str, items, chunk_bytes: int, device) -> dict:
     """K1 in place over `items` as a warm save runs it (no speculated
-    rows): CUDA-event ms of back-to-back wrapper calls, its kernel's
-    device time by torch.profiler, the plain version's ms and the bound;
-    beside it, once, the bound of the padded bucket matrices K1 read
-    before it read the leaves in place."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    rows): CUDA-event ms of back-to-back wrapper calls, the host time of
+    one wrapper call (the calls run ahead of the card while the host is
+    the slower), its kernel's device time by torch.profiler, the plain
+    version's ms and the bound; beside it, once, the bound of the padded
+    bucket matrices K1 read before it read the leaves in place."""
     from repro_torch.kernels import batch, ref
     from repro_torch.kernels import fingerprint as fp
     plan = batch.plan_leaves(batch._specs(items), chunk_bytes)
@@ -572,40 +631,46 @@ def time_inplace(name: str, items, chunk_bytes: int, device) -> dict:
         return fp.fingerprint_leaves_cmp(leaves, rows, prev)
 
     ms = cuda_ms(run, 20)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        run()
+    host_ms = (time.perf_counter() - t) * 1e3 / 20
     readable = [fp.readable_leaf(t) for t in leaves]
     plain_ms = cuda_ms(
         lambda: ref.fingerprint_leaves_cmp_ref(readable, rows, prev), 2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            run()
-        torch.cuda.synchronize()
-    dev = {"kernel": 0.0, "other": 0.0}
-    n_kernel = 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            key = "kernel" if "leaves_cmp_kernel" in e.key else "other"
-            dev[key] += e.self_device_time_total / 5e3
-            n_kernel += e.count if key == "kernel" else 0
+    n_calls = 5
+    for attempt in range(1, 4):
+        n_kernel, device_us = device_records(
+            lambda: [run() for _ in range(n_calls)],
+            ("leaves_cmp_kernel",))["leaves_cmp_kernel"]
+        if n_kernel >= n_calls / 2:
+            break
+        log(f"[inplace]   window {attempt} of 3 at the {name} plan: the "
+            f"profiler kept {n_kernel} records of {n_calls} launches")
     bound = Bound()
     bound.add_inplace(rows, readable, fp.inplace_plan(
         rows, fp.leaf_mis(readable).tobytes()), payload_words=0)
     padded = Bound()
     for b in plan.buckets:
         padded.add(b.padded_rows, b.width, compare=True)
-    device_ms = dev["kernel"] if n_kernel == 5 else None
+    if n_kernel < n_calls / 2:
+        raise AssertionError(f"K1's device time at the {name} plan: no "
+                             f"sound profiling window in 3")
+    device_ms = device_us / 1e3
     log(f"[inplace] K1 at the {name} plan ({len(items)} leaves, "
         f"{rows.n_rows} rows): {ms:.4f} ms per call by CUDA events, "
-        f"kernel {'not measured' if device_ms is None else f'{device_ms:.4f} ms'}"
-        f" by torch.profiler (+ {dev['other']:.4f} ms of uploads and "
-        f"memset), bound {bound.ms:.4f} ms ({bound.by}: "
-        f"{bound.bytes / 1e9:.4f} GB); plain version {plain_ms:.4f} ms")
+        f"kernel {device_ms:.4f} ms by torch.profiler ({n_kernel} of "
+        f"{n_calls} launches recorded), bound {bound.ms:.4f} ms "
+        f"({bound.by}: {bound.bytes / 1e9:.4f} GB); the wrapper's host "
+        f"time {host_ms:.4f} ms per call; plain version {plain_ms:.4f} ms")
     log(f"[inplace]   before, K1 read the padded bucket matrices "
         f"{[(b.padded_rows, b.width) for b in plan.buckets]}: "
         f"{padded.bytes / 1e9:.4f} GB, whose bound {padded.ms:.4f} ms the "
         f"earlier share was taken against")
     return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                bound_ms=bound.ms, bound_by=bound.by)
+                bound_ms=bound.ms, bound_by=bound.by, host_ms=host_ms,
+                n_rows=rows.n_rows)
 
 
 def phase_inplace(cfg: dict, gen, device) -> dict:
@@ -834,7 +899,7 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
             raise AssertionError(
                 f"{rung}: rebuilt {len(ins)} K2 inputs per save, the rung "
                 f"launched {per_rung[rung] / 4} per save")
-    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, not_measured=[])
+    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, device_ms=0.0)
     bound = Bound()
     for rung, ins in inputs.items():
         rung_bound = Bound()
@@ -859,7 +924,6 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
             f"({100 * rung_bound.ms / ms:.1f}% of it)")
         device_us = 0.0
         times = k2_device_times(ins)
-        missing = sorted({tuple(w.shape) for w, _ in ins} - set(times))
         for shape, t in times.items():
             per_launch = t["kernel_us"] + t["memset_us"]
             device_us += t["n"] * per_launch
@@ -867,19 +931,15 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
             one.add(*shape, compare=False)
             log(f"[rungs]   {shape} x{t['n']} per save: device "
                 f"{per_launch:.3f} us per launch (kernel "
-                f"{t['kernel_us']:.3f} + memset {t['memset_us']:.3f}), "
+                f"{t['kernel_us']:.3f} + memset {t['memset_us']:.3f}; "
+                f"records kept (kernel, memset, launches) {t['records']}), "
                 f"bound {one.ms * 1e3:.3f} us ({one.by}), "
                 f"{100 * one.ms * 1e3 / per_launch:.1f}% of it")
-        out["not_measured"] += [(rung, shape) for shape in missing]
-        if missing:
-            log(f"[rungs] K2 on the {rung} rung: device time not measured "
-                f"at {missing} (no sound profiling window); "
-                f"{device_us / 1e3:.4f} ms per save at the other shapes")
-        else:
-            log(f"[rungs] K2 on the {rung} rung: device time "
-                f"{device_us / 1e3:.4f} ms per save by torch.profiler, bound "
-                f"{rung_bound.ms:.4f} ms; the rest of the {ms:.4f} ms is the "
-                f"host launching it")
+        out["device_ms"] += device_us / 1e3
+        log(f"[rungs] K2 on the {rung} rung: device time "
+            f"{device_us / 1e3:.4f} ms per save by torch.profiler at every "
+            f"shape, bound {rung_bound.ms:.4f} ms; the rest of the "
+            f"{ms:.4f} ms is the host launching it")
     out.update(bound_ms=bound.ms, bound_by=bound.by)
     return out
 
@@ -887,56 +947,50 @@ def k2_on_its_inputs(state: dict, per_rung: dict, device) -> dict:
 def k2_device_times(ins) -> dict:
     """K2's device time per launch for each distinct (C, W) of `ins`, from
     torch.profiler's records of its kernel (`digest_kernel`) and of the
-    memset that zeroes the digests of a launch cut into several segments,
-    each averaged over one window of back-to-back launches.  A window is
-    taken again, up to 3 times, when the profiler lost more than one
-    record of it or read a launch as faster than its byte bound, which no
-    launch can be; a shape without a sound window is left out (not
-    measured): {shape: dict(n=inputs of that shape, kernel_us=,
-    memset_us=)}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    memset that zeroes the digests of a launch cut into several segments:
+    each shape in its own window (`device_records`) of at least 24
+    launches, averaged over the records kept.  A window is taken again,
+    up to 3 times, when the profiler kept fewer than half the launches or
+    read a launch as faster than its byte bound, which no launch can be;
+    a shape with no sound window fails the phase.  {shape: dict(n=inputs
+    of that shape, kernel_us=, memset_us=, records=)}"""
     from repro_torch.kernels import fingerprint as fp
     by_shape = {}
     for words, lengths in ins:
         by_shape.setdefault(tuple(words.shape), []).append((words, lengths))
     times = {}
     for shape, group in by_shape.items():
-        reps = max(3, 24 // len(group))
+        reps = max(3, -(-24 // len(group)))
         n = reps * len(group)
         split = fp.digest_plan(*shape)[1] > 1
         floor = Bound()
         floor.add(*shape, compare=False)
+
+        def run():
+            for _ in range(reps):
+                for words, lengths in group:
+                    fp.fingerprint_words(words, lengths)
+
         for attempt in range(1, 4):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    for words, lengths in group:
-                        fp.fingerprint_words(words, lengths)
-                torch.cuda.synchronize()
-            total = {"digest_kernel": 0.0, "Memset": 0.0}
-            count = {"digest_kernel": 0, "Memset": 0}
-            for e in prof.key_averages():
-                for name in total:
-                    if e.device_type == DeviceType.CUDA and name in e.key:
-                        total[name] += e.self_device_time_total
-                        count[name] += e.count
-            if not (n - 1 <= count["digest_kernel"] <= n
-                    and (n - 1 <= count["Memset"] <= n if split
-                         else count["Memset"] == 0)):
+            rec = device_records(run, ("digest_kernel", "Memset"))
+            (nk, kernel_us), (nm, memset_us) = \
+                rec["digest_kernel"], rec["Memset"]
+            if nk < n / 2 or (split and nm < n / 2) or (not split and nm):
                 log(f"[rungs]   window {attempt} of 3 at {shape}: the "
-                    f"profiler kept {count} records of {n} launches")
+                    f"profiler kept {nk} kernel and {nm} memset records "
+                    f"of {n} launches")
                 continue
-            t = dict(n=len(group),
-                     kernel_us=total["digest_kernel"] / count["digest_kernel"],
-                     memset_us=total["Memset"] / max(count["Memset"], 1))
+            t = dict(n=len(group), kernel_us=kernel_us,
+                     memset_us=memset_us or 0.0, records=(nk, nm, n))
             if t["kernel_us"] + t["memset_us"] < floor.ms * 1e3:
                 log(f"[rungs]   window {attempt} of 3 at {shape}: the "
                     f"profiler read {t}, below the byte bound")
                 continue
             times[shape] = t
             break
+        else:
+            raise AssertionError(f"K2's device time at {shape}: no sound "
+                                 f"profiling window in 3")
     return times
 
 
@@ -1690,6 +1744,326 @@ def phase_sessions(gen, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: training
+# --------------------------------------------------------------------------
+
+def host_rss_gb() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def observe_train(device, **kw) -> dict:
+    """One `repro_torch.launch.train.train("qwen1.5-0.5b", reduced=False,
+    device="cuda", **kw)` run, instrumented through the names that module
+    calls: each step timed by CUDA events (not the static checker's trace
+    of it), the checker's seconds, every `save()` call's host time (an
+    async one under `set_sync_debug_mode("error")`), K1's row table per
+    launch, fetches per thread, K1 launches, peak device memory."""
+    import repro_torch.launch.train as lt
+    from repro_torch.kernels import batch as kb
+    from repro_torch.kernels import fingerprint as fp
+    real = (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
+            kb.fingerprint_leaves_cmp)
+    obs = dict(events=[], save_calls=[], k1_rows=[], trace_s=None)
+    tracing = [False]
+
+    class Observed(real[0]):
+        def save(self, state, **kw):
+            if self.async_mode:
+                torch.cuda.set_sync_debug_mode("error")
+            t = time.perf_counter()
+            try:
+                return super().save(state, **kw)
+            finally:
+                obs["save_calls"].append(time.perf_counter() - t)
+                torch.cuda.set_sync_debug_mode(0)
+
+    def make_train_step(*args, **kw):
+        step = real[1](*args, **kw)
+
+        def timed(state, batch):
+            if tracing[0]:
+                return step(state, batch)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(state, batch)
+            ev[1].record()
+            obs["events"].append(ev)
+            return out
+        return timed
+
+    def readonly_state_leaves(*args, **kw):
+        tracing[0] = True
+        t = time.perf_counter()
+        try:
+            return real[2](*args, **kw)
+        finally:
+            tracing[0] = False
+            obs["trace_s"] = time.perf_counter() - t
+
+    def fingerprint_leaves_cmp(leaves, table, *args, **kw):
+        obs["k1_rows"].append((table.n_rows, int((table.lengths > 0).sum())))
+        return real[3](leaves, table, *args, **kw)
+
+    (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
+     kb.fingerprint_leaves_cmp) = (Observed, make_train_step,
+                                   readonly_state_leaves,
+                                   fingerprint_leaves_cmp)
+    caller = threading.get_ident()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fp.reset_launch_counts()
+    try:
+        with FetchesByThread() as fetches:
+            t0 = time.perf_counter()
+            out = lt.train("qwen1.5-0.5b", reduced=False, device="cuda",
+                           log=False, **kw)
+            torch.cuda.synchronize()
+            obs["wall"] = time.perf_counter() - t0
+    finally:
+        (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
+         kb.fingerprint_leaves_cmp) = real
+    obs.update(out=out, launches=fp.launches["fingerprint_cmp"],
+               peak=torch.cuda.max_memory_allocated(device),
+               caller_fetches=fetches.counts[caller],
+               body_fetches=sum(n for th, n in fetches.counts.items()
+                                if th != caller),
+               step_ms=[a.elapsed_time(b) for a, b in obs.pop("events")])
+    stats = out["chipmink"].save_stats
+    losses = out["losses"]
+    if not (np.isfinite(losses).all() and len(losses) == kw["steps"]):
+        raise AssertionError(f"losses {losses}")
+    if any(s["n_digest_syncs"] + s["n_gather_syncs"] > 2 for s in stats):
+        raise AssertionError(f"a save body made more than 2 fetches: "
+                             f"{[(s['n_digest_syncs'], s['n_gather_syncs']) for s in stats]}")
+    if kw.get("async_save", True):
+        if obs["caller_fetches"]:
+            raise AssertionError(f"an async save() fetched "
+                                 f"{obs['caller_fetches']} times in the caller")
+        if obs["body_fetches"] != sum(s["n_digest_syncs"] + s["n_gather_syncs"]
+                                      for s in stats):
+            raise AssertionError("body fetches differ from their stats")
+    if len(obs["k1_rows"]) != len(stats) or (
+            device.type == "cuda" and obs["launches"] != len(stats)):
+        raise AssertionError(f"{obs['launches']} K1 launches and "
+                             f"{len(obs['k1_rows'])} wrapper calls for "
+                             f"{len(stats)} saves")
+    return obs
+
+
+def log_train(name: str, obs: dict, card: str) -> None:
+    out = obs["out"]
+    stats = out["chipmink"].save_stats
+    log(f"[train] {name} ({card}): losses {out['losses']}; step ms by CUDA "
+        f"events {obs['step_ms']}; static checker {obs['trace_s']:.3f} s, "
+        f"{len(out['readonly'])} read-only leaves; {len(stats)} saves, "
+        f"save() calls {[round(t * 1e3, 3) for t in obs['save_calls']]} ms; "
+        f"fetches: caller {obs['caller_fetches']}, bodies "
+        f"{[s['n_digest_syncs'] + s['n_gather_syncs'] for s in stats]}; "
+        f"K1 launches {obs['launches']}, rows (all, real) {obs['k1_rows']}; "
+        f"wall {obs['wall']:.3f} s; peak device memory "
+        f"{obs['peak'] / 1e9:.3f} GB; peak host RSS {host_rss_gb():.3f} GB")
+    for s in stats:
+        body = sum(s.get(k, 0.0) for k in STAGES)
+        log(f"[train] {name} save " + json.dumps(dict(body_s=body, **{
+            k: s.get(k) for k in ("time_id", "t_snapshot") + STAGES + (
+                "n_snapshot_bytes", "n_leaves", "n_active_leaves",
+                "n_chunks", "n_dirty_chunks", "pods_written",
+                "bytes_written", "n_digest_syncs", "n_gather_syncs")})))
+
+
+def descend(gen, device, card: str) -> None:
+    """The train step descends on the card: from a fresh full-width init,
+    8 steps of `make_train_step` on one fixed batch at lr 1e-4 must lower
+    the loss.  (The trainer's own lr of 1e-3, the reference's, makes the
+    full-width loss rise step after step in both packages:
+    `experiments/train_trend.py --layers 12`.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.model import init_model_params
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = get_config("qwen1.5-0.5b")
+    opt_cfg = OptConfig(lr=1e-4)
+    state = init_train_state(cfg, init_model_params(cfg, gen, device=device),
+                             opt_cfg)
+    step = make_train_step(cfg, opt_cfg, remat=False)
+    batch = batch_on(TokenPipeline(cfg.vocab, TRAIN["global_batch"],
+                                   TRAIN["seq_len"]).next_batch(), device)
+    losses = []
+    for _ in range(8):
+        state, met = step(state, batch)
+        losses.append(float(met["nll"]))
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-2:]) < np.mean(losses[:2])):
+        raise AssertionError(f"the step did not descend: {losses}")
+    log(f"[train] descent ({card}): 8 steps at lr 1e-4 on one fixed batch "
+        f"from a fresh init: losses {losses}")
+    busy, wall, n_ops = profile_device(lambda: step(state, batch), 2)
+    log(f"[trace] full-width train step under the profiler ({card}): device "
+        f"busy {busy:.3f} ms of {wall:.3f} ms wall per step "
+        f"({100 * busy / wall:.1f}%), {n_ops:.0f} device ops per step")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
+def phase_train(gen, device, card: str) -> dict:
+    """10a-10d: the trainer at full width (see the module docstring,
+    phase 10).  Returns K1's launches on the training path and its
+    numbers at the training plan."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import LGA, Chipmink, MemoryStore
+    from repro_torch.kernels import fingerprint as fp
+    from repro_torch.launch.train import batch_on, snapshot_of
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.models.model import init_model_params
+    from repro_torch.runtime import TrainingSupervisor
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    from repro_torch.train.tree import tree_leaves_with_paths
+    launches = 0
+
+    # -- 10a: the trainer, async ----------------------------------------
+    a = observe_train(device, **TRAIN)
+    launches += a["launches"]
+    out = a["out"]
+    log_train("10a async", a, card)
+    full = out["losses"]
+    t0 = time.perf_counter()
+    want = snapshot_of(out["state"], out["pipeline"])
+    got = out["chipmink"].load()
+    torch.cuda.synchronize()
+    bit_equal(got, want)
+    log(f"[train] 10a: the last commit loads back bit-exact "
+        f"({time.perf_counter() - t0:.3f} s)")
+    del got
+    items = inplace_items(want, TRAIN_CHUNK_BYTES)
+    err = check_inplace("training", items, TRAIN_CHUNK_BYTES, gen, device)
+    k1 = time_inplace("training", items, TRAIN_CHUNK_BYTES, device)
+    k1["max_abs_err"] = err
+    if k1["n_rows"] != a["k1_rows"][-1][0]:
+        raise AssertionError(f"training plan of {k1['n_rows']} rows, the "
+                             f"saves launched K1 over {a['k1_rows']}")
+    out["chipmink"].close()
+    del a, out, want, items
+    torch.cuda.empty_cache()
+    descend(gen, device, card)
+
+    # -- 10b: frozen fine-tune ------------------------------------------
+    frozen = ("params/embed",) + tuple(f"params/layers/{i}"
+                                       for i in range(22))
+    b = observe_train(device, frozen=frozen, **TRAIN)
+    launches += b["launches"]
+    out = b["out"]
+    log_train("10b frozen", b, card)
+    params = tree_leaves_with_paths({"params": out["state"]["params"]})
+    want_ro = {p for p, _ in params
+               if any(p == f or p.startswith(f + "/") for f in frozen)}
+    if out["readonly"] != want_ro:
+        raise AssertionError(f"10b: read-only set of {len(out['readonly'])} "
+                             f"leaves, the frozen parameters are "
+                             f"{len(want_ro)}")
+    boot, second = out["chipmink"].save_stats
+    if second["n_active_leaves"] != second["n_leaves"] - len(want_ro):
+        raise AssertionError(f"10b: {second['n_active_leaves']} active of "
+                             f"{second['n_leaves']} leaves")
+    if not second["bytes_written"] < 0.3 * boot["bytes_written"]:
+        raise AssertionError(f"10b: second save wrote "
+                             f"{second['bytes_written']} bytes, bootstrap "
+                             f"{boot['bytes_written']}")
+    frozen_rows = sum(-(-leaf.numel() * leaf.element_size()
+                        // TRAIN_CHUNK_BYTES)
+                      for p, leaf in params if p in want_ro)
+    (_, real0), (_, real1) = b["k1_rows"]
+    if real0 - real1 != frozen_rows:
+        raise AssertionError(f"10b: K1's real rows fell from {real0} to "
+                             f"{real1}, the frozen leaves hold {frozen_rows}")
+    log(f"[train] 10b: read-only set = the {len(want_ro)} frozen parameter "
+        f"leaves; second save {second['n_active_leaves']} of "
+        f"{second['n_leaves']} leaves active, {second['bytes_written']} "
+        f"bytes ({100 * second['bytes_written'] / boot['bytes_written']:.2f}"
+        f"% of the bootstrap's {boot['bytes_written']}); K1's real rows "
+        f"{real0} -> {real1} (the frozen leaves hold {frozen_rows})")
+    out["chipmink"].close()
+    del b, out
+    torch.cuda.empty_cache()
+
+    # -- 10c: resume from a commit, against 10a's uninterrupted 8 steps --
+    c = observe_train(device, **dict(TRAIN, steps=4, save_every=4,
+                                     async_save=False))
+    launches += c["launches"]
+    log_train("10c 4 steps, sync", c, card)
+    cfg = get_config("qwen1.5-0.5b")
+    t0 = time.perf_counter()
+    loaded = c["out"]["chipmink"].load()
+    state = train_state_from_numpy(loaded, device)
+    pipe = TokenPipeline(cfg.vocab, TRAIN["global_batch"], TRAIN["seq_len"])
+    pipe.restore(loaded["data"])
+    t_restore = time.perf_counter() - t0
+    first = c["out"]["losses"]
+    c["out"]["chipmink"].close()
+    del c, loaded
+    step = make_train_step(cfg, OptConfig(lr=1e-3), remat=False)
+    resumed = []
+    for _ in range(4):
+        state, met = step(state, batch_on(pipe.next_batch(), device))
+        resumed.append(float(met["nll"]))
+    np.testing.assert_allclose(first + resumed, full, rtol=1e-4, atol=1e-4)
+    log(f"[train] 10c: 4 steps, load of the newest commit and restore "
+        f"{t_restore:.3f} s, 4 more: losses {first + resumed} against the "
+        f"uninterrupted {full}, within rtol=atol=1e-4; bit-equal: "
+        f"{first + resumed == full}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # -- 10d: supervisor restart, 2 layers ------------------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    opt_cfg = OptConfig(lr=1e-3)
+    state = init_train_state(cfg2, init_model_params(cfg2, gen,
+                                                     device=device), opt_cfg)
+    pipe = TokenPipeline(cfg2.vocab, TRAIN["global_batch"], TRAIN["seq_len"])
+    step = make_train_step(cfg2, opt_cfg, remat=False)
+    ck = Chipmink(MemoryStore(), LGA(), chunk_bytes=TRAIN_CHUNK_BYTES,
+                  async_mode=True, device=device)
+    sup = TrainingSupervisor(ck, save_every=3)
+
+    def do_step(st, i):
+        new, _ = step(st, batch_on(pipe.next_batch(), device))
+        return new
+
+    def restore(loaded):
+        pipe.restore(loaded["data"])
+        return train_state_from_numpy(loaded, device)
+
+    fp.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, stats = sup.run(state, 8, do_step,
+                           make_snapshot=lambda st: snapshot_of(st, pipe),
+                           restore=restore, fail_at={5})
+    wall = time.perf_counter() - t0
+    launches += fp.launches["fingerprint_cmp"]
+    if not (int(final["step"]) == 8 and stats["failures"] == 1
+            and stats["resumed_from"] == [3] and not stats["save_errors"]
+            and pipe.cursor()["step"] == 8):
+        raise AssertionError(f"10d: step {int(final['step'])}, {stats}, "
+                             f"cursor {pipe.cursor()}")
+    log(f"[train] 10d ({card}): TrainingSupervisor, 2 layers, 8 steps, "
+        f"a failure injected at step 5: {stats}, saves {sup.saves}, ended "
+        f"at step 8 with the data cursor at 8, {wall:.3f} s; K1 launches "
+        f"{fp.launches['fingerprint_cmp']}")
+    ck.close()
+    del final, state, ck, sup
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k1=k1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1753,6 +2127,8 @@ def main(argv=None) -> int:
     phase_store_features(small, gen, device)
     served = phase_serve(device)
     phase_sessions(gen, device)
+    trained = phase_train(gen, device, smi.stdout.strip().splitlines()[
+        device.index])
 
     # the main path (phase 2) and serving (phase 9a, sync and async) run
     # K1; K2 runs on the fused=False and batched=False rungs (phase 3),
@@ -1760,13 +2136,22 @@ def main(argv=None) -> int:
     serving = {mode: r["launches"]["fingerprint_cmp"]
                for mode, r in served.items()}
     launches = {"fingerprint_cmp": main["launches"]["fingerprint_cmp"]
-                + sum(serving.values()),
+                + sum(serving.values()) + trained["launches"],
                 "fingerprint": rung_launches["fingerprint"]}
     log(f"[numbers] fingerprint_cmp launches: "
         f"{main['launches']['fingerprint_cmp']} on the main path "
         f"({main['launches']['fingerprint_cmp'] / main['n_saves']} per "
         f"save), {serving} serving "
-        f"({serving['sync'] / served['sync']['n_saves']} per session save)")
+        f"({serving['sync'] / served['sync']['n_saves']} per session save), "
+        f"{trained['launches']} training (1 per save)")
+    kt = trained["k1"]
+    log(f"[numbers] fingerprint_cmp at the training plan ({kt['n_rows']} "
+        f"rows, 256 KiB chunks): {kt['ms']:.4f} ms per call by CUDA events, "
+        f"kernel {kt['device_ms']:.4f} ms by torch.profiler, the wrapper's "
+        f"host time {kt['host_ms']:.4f} ms, bound {kt['bound_ms']:.4f} ms "
+        f"({kt['bound_by']}), {100 * kt['bound_ms'] / kt['device_ms']:.1f}% "
+        f"of the device time; plain version {kt['plain_ms']:.4f} ms; "
+        f"bit-exact (max abs err {kt['max_abs_err']})")
     ks = k1_by_path["serving"]
     log(f"[numbers] fingerprint_cmp at the serving plan (buckets "
         f"{serve_shapes}): {ks['ms']:.4f} ms per session save by CUDA "
@@ -1779,11 +2164,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} never launched on its path")
     times = {"fingerprint_cmp": k1, "fingerprint": k2}
     where = {"fingerprint_cmp": "over the main path's plan, in place "
-                                "(launches: main path and serving)",
+                                "(launches: main path, serving, training)",
              "fingerprint": "over one save of each of the fused=False and "
                             "batched=False rungs"}
     k2["max_abs_err"] = max(k2["max_abs_err"], err["fingerprint"])
-    k1["max_abs_err"] = max(err["fingerprint_cmp"], err_inplace)
+    k1["max_abs_err"] = max(err["fingerprint_cmp"], err_inplace,
+                            trained["k1"]["max_abs_err"])
     kernels = []
     for name, meta in KERNELS.items():
         t = times[name]
@@ -1796,9 +2182,8 @@ def main(argv=None) -> int:
         log(f"[numbers] {name}: {t['ms']:.4f} ms per save {where[name]}, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"version {t['plain_ms']:.4f} ms, launches {launches[name]}; "
-            f"no single PyTorch call computes this digest"
-            + (f"; profiler device time not measured at (rung, shape) "
-               f"{t['not_measured']}" if t.get("not_measured") else ""))
+            f"kernel device time {t['device_ms']:.4f} ms by torch.profiler; "
+            f"no single PyTorch call computes this digest")
     log(smi.stdout.strip().splitlines()[device.index])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@ Public API:
                         save intents (Chipmink(multi_writer=True))
     DeltaPolicy       — delta-chain pod storage cost model
                         (Chipmink(delta_chains=True))
+    readonly_state_leaves, is_static_execution, host_call_is_static —
+                        the static checker (§6.3): which state leaves a
+                        step provably returns unchanged (`readonly_paths`)
 """
 from .graph import ObjectGraph, build_graph, chunk_grid, rebuild_tree
 from .async_saver import AsyncSaveError, AsyncSaver
@@ -38,3 +41,5 @@ from .thesaurus import PodThesaurus
 from .volatility import (ConstantVolatility, FlipTracker, GBMVolatility,
                          PriorVolatility, VolatilityModel)
 from .active_filter import ActiveVariableFilter
+from .ascc import (STATIC_HOST_ALLOWLIST, host_call_is_static,
+                   is_static_execution, readonly_state_leaves)

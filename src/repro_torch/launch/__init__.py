@@ -1,1 +1,1 @@
-"""Launchers of the port: the serving driver."""
+"""Launchers of the port: the serving and training drivers."""

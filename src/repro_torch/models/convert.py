@@ -1,6 +1,6 @@
-"""Carry a parameter or cache tree across from numpy: the reference's
-arrays (`np.asarray` of each leaf) become the port's tensors, bit for bit,
-with tied leaves kept as one tensor.
+"""Carry a parameter, cache or train-state tree across from numpy: the
+reference's arrays (`np.asarray` of each leaf) become the port's tensors,
+bit for bit, with tied leaves kept as one tensor.
 
 numpy has no bfloat16 of its own: the reference's bf16 arrays carry the
 `ml_dtypes` type, which is read here by its *name* and reinterpreted
@@ -42,3 +42,21 @@ def params_from_numpy(tree: Any, device: Any) -> Any:
 
 #: a cache is the same kind of tree (K/V in bf16, ``pos`` a 0-d int32)
 cache_from_numpy = params_from_numpy
+
+
+def train_state_from_numpy(tree: Any, device: Any) -> Dict:
+    """The port's TrainState from a reference TrainState as numpy, or from
+    a Chipmink load of one: ``params``, ``opt`` (AdamW ``mu``/``nu`` or
+    Adafactor ``vr``/``vc``/``v``) and ``ef`` (if present) on `device`,
+    and ``step`` as a 0-d int32 tensor.  Other keys (a saved ``data``
+    cursor) are left out."""
+    def put(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: put(v) for k, v in t.items()}
+        return t.to(device) if isinstance(t, torch.Tensor) else t
+
+    state = {k: put(params_from_numpy(tree[k], device))
+             for k in ("params", "opt", "ef") if k in tree}
+    state["step"] = torch.tensor(int(tree["step"]), dtype=torch.int32,
+                                 device=device)
+    return state

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import struct
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -74,6 +75,22 @@ def unflatten(flat: Dict[Path, Any]) -> Dict:
     return out
 
 
+def round_to(x: float, dtype: torch.dtype) -> float:
+    """The Python float `x` rounded to nearest-even in the float `dtype`,
+    on the host: equal to ``float(torch.tensor(x, dtype=dtype))`` but with
+    no tensor, so it also runs on meta tensors."""
+    if dtype == torch.float64:
+        return float(x)
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", x))[0]
+    f32 = struct.unpack("<f", struct.pack("<f", x))[0]
+    if dtype != torch.bfloat16:
+        return f32
+    bits = struct.unpack("<I", struct.pack("<f", f32))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
 # ---------------------------------------------------------------------------
 # norms / projections
 # ---------------------------------------------------------------------------
@@ -115,7 +132,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.gelu(x, approximate=True)` step by step in x's dtype."""
-    c = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
+    c = round_to(math.sqrt(2 / math.pi), x.dtype)
     cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
     return x * cdf
 

@@ -1,12 +1,12 @@
 """Model dispatch: the port of `repro.models.model` for the dense family.
 
-    api(cfg)          -> namespace with param_defs / prefill / decode_step /
-                         cache_spec / init_cache
+    api(cfg)          -> namespace with param_defs / loss_fn / prefill /
+                         decode_step / cache_spec / init_cache
     init_model_params -> the parameter tree, on a device, from a generator
     count_params      -> the parameter count from `param_defs` (abstract)
 
-Training (`loss_fn`), the other families and the dry-run's input specs
-are not ported yet (ROADMAP.md section 1).
+The other families and the dry-run's input specs are not ported yet
+(ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ def api(cfg: ArchConfig) -> SimpleNamespace:
     transformer.layer_plan(cfg)          # raises for a family not ported
     return SimpleNamespace(
         param_defs=transformer.param_defs,
+        loss_fn=transformer.loss_fn,
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
         cache_spec=transformer.cache_spec,

@@ -19,11 +19,12 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention
 from .layers import (ParamDef, ParamDefs, apply_rope, dense, gelu_mlp,
-                     layer_norm, rms_norm, swiglu)
+                     layer_norm, rms_norm, round_to, swiglu)
 
 MIXERS = ("attn", "attn_local")
 FFNS = ("swiglu", "gelu", "none")
@@ -181,8 +182,8 @@ def embed_tokens(params: Dict, tokens: torch.Tensor,
     """Rows of the embedding, in bf16, times sqrt(d_model) rounded to bf16
     (the reference multiplies two bf16 values)."""
     x = torch.nn.functional.embedding(tokens, params["embed"])
-    scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=torch.bfloat16))
-    return x.to(torch.bfloat16) * scale
+    return x.to(torch.bfloat16) * round_to(math.sqrt(cfg.d_model),
+                                           torch.bfloat16)
 
 
 def logits_from(params: Dict, x: torch.Tensor,
@@ -197,16 +198,47 @@ def logits_from(params: Dict, x: torch.Tensor,
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
-            q_chunk: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence forward -> hidden (B, S, E), after the final norm."""
+            q_chunk: Optional[int] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> hidden (B, S, E), after the final norm.
+    ``remat`` checkpoints each layer: its activations are recomputed in
+    the backward pass instead of kept."""
     plan = layer_plan(cfg)
     _, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device)
     for i, (mixer, ffn) in enumerate(plan):
-        x = _layer_apply(params["layers"][str(i)], x, cfg, mixer, ffn,
-                         positions=positions, q_chunk=q_chunk)
+        lp = params["layers"][str(i)]
+        kw = dict(positions=positions, q_chunk=q_chunk)
+        if remat:
+            x = checkpoint(_layer_apply, lp, x, cfg, mixer, ffn,
+                           use_reentrant=False, **kw)
+        else:
+            x = _layer_apply(lp, x, cfg, mixer, ffn, **kw)
     return _norm(x, params["final_norm"], cfg)
+
+
+def sharded_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean of logsumexp minus the label's logit, in float32.  The
+    reference picks the label's logit with a one-hot einsum (which never
+    gathers a model-sharded vocab); on one device a gather gives the same
+    float32 value."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)                             # (B, S)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]   # (B, S)
+    return torch.mean(lse - ll)
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *,
+            q_chunk: Optional[int] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy.  batch: tokens, labels (B, S) int.
+    Returns (loss, {"nll": loss})."""
+    x = forward(params, batch["tokens"], cfg, q_chunk=q_chunk, remat=remat)
+    loss = sharded_cross_entropy(logits_from(params, x, cfg),
+                                 batch["labels"])
+    return loss, {"nll": loss}
 
 
 def prefill(params: Dict, batch: Dict, cfg: ArchConfig, *,

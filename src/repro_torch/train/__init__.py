@@ -1,4 +1,4 @@
-"""Serving substrate of the port: prefill / decode step factories.
-Training (optimizer, train step, data, gradient compression) is not
-ported yet (ROADMAP.md section 1)."""
-from . import serve_step
+"""Training substrate of the port: optimizers, the train-step factory,
+the data pipeline, gradient compression, and the serving step
+factories."""
+from . import data, grad_compress, optimizer, serve_step, train_step

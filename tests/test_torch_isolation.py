@@ -34,7 +34,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, env=env,
                          timeout=120, check=True).stdout
     assert "BAD=\n" in out, out
-    assert len(SUBMODULES) >= 43
+    assert len(SUBMODULES) >= 51
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
@@ -56,8 +56,11 @@ def test_chipmink_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Chipmink(MemoryStore(), device="cuda:0")
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
     from repro_torch.sessions import SessionService
     with pytest.raises(RuntimeError, match="CUDA"):
         SessionService(MemoryStore())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve("qwen1.5-0.5b", log=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("qwen1.5-0.5b", steps=1, log=False)
