@@ -89,7 +89,7 @@ class ChangeReport:
 class ChangeDetector:
     def __init__(self, *, chunk_bytes: int = 1 << 22, seed: int = 0,
                  batched: bool = True,
-                 fused: bool = True, device: Any = "cpu"):
+                 fused: bool = True, device: Any = "cuda"):
         self.chunk_bytes = chunk_bytes
         self.seed = seed
         self.device = kops.resolve_device(device)

@@ -230,12 +230,6 @@ class Chipmink:
         large_leaf_action: str = "warn",
         device: Any = "cuda",
     ) -> None:
-        if torch.device(device).type == "cuda" and \
-                not torch.cuda.is_available():
-            raise RuntimeError(
-                "Chipmink(device='cuda') needs a CUDA device and none is "
-                "available; pass device='cpu' to run the kernels' plain "
-                "versions on the CPU")
         if large_leaf_action not in ("warn", "raise", "ignore"):
             raise ValueError(
                 f"large_leaf_action must be 'warn', 'raise' or 'ignore', "

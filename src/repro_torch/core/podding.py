@@ -25,7 +25,7 @@ import msgpack
 import numpy as np
 import torch
 
-from ..kernels.ops import fetch_to_host, is_host_array
+from ..kernels.ops import fetch_to_host, is_host_array, resolve_device
 from .graph import (ALIAS, CHUNK, CONTAINER, LEAF, SCALAR, Node, ObjectGraph,
                     chunk_slice, path_str, torch_dtype)
 from .lga import BUNDLE, SPLIT_CONTINUE, SPLIT_FINAL, PodState, PoddingPolicy
@@ -323,10 +323,10 @@ class Unpodder:
 
     def __init__(self, memo: GlobalMemoSpace,
                  fetch_pod: Callable[[int], bytes],
-                 device: Any = "cpu"):
+                 device: Any = "cuda"):
         self.memo = memo
         self.fetch_pod = fetch_pod
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._pod_entries: Dict[int, List[Dict[str, Any]]] = {}
         self._values: Dict[Tuple[int, int], Any] = {}  # (pod, local) -> value
         self.loaded_pods: Set[int] = set()

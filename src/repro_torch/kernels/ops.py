@@ -46,6 +46,10 @@ def resolve_device(device: Any) -> torch.device:
     """`device` as a torch.device with an explicit index for CUDA, so
     that it compares equal to the `.device` of tensors placed on it."""
     d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA device and "
+                           f"none is available; pass device='cpu' to run "
+                           f"the kernels' plain versions on the CPU")
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d

@@ -1,14 +1,16 @@
 """Serving driver: batched request decoding with multi-session
 incremental persistence over one shared store.  The port of
-`repro.launch.serve`, for the dense family.
+`repro.launch.serve`, for every model family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --reduced --sessions 4 --store memory [--device cpu]
 
-Serving state (KV caches + request cursors) is a massive, evolving,
-append-mostly object graph: between snapshots only the cache slots
+Serving state (KV caches / SSM and LRU states + request cursors) is a
+massive, evolving object graph: between snapshots only the cache slots
 written since the last save change, so session checkpoints cost O(delta),
-not O(cache).
+not O(cache).  A recurrent state is rewritten whole at every step (every
+chunk dirty), and an encoder's cross K/V is written once per session and
+reused by every later snapshot.
 
 The driver runs ``n_sessions`` concurrent sessions through one
 `repro_torch.sessions.SessionService`: each session is a branch in the
@@ -19,7 +21,7 @@ every later snapshot O(tokens since last snapshot).  At the end an idle
 session is evicted to exercise the O(delta) refcount reclaim.
 
 Everything runs on ``device`` (``"cuda"`` by default; it raises without
-a card).  Decode updates the KV caches in place; a sync save digests
+a card).  Decode updates the caches and states in place; a sync save digests
 them before the next step writes, and an async save snapshots them on
 the current stream first.  Generated tokens stay on the device and come
 to the host once, at the end.
@@ -36,6 +38,7 @@ import torch
 
 from ..configs import get_config
 from ..core import LGA, FileStore, MemoryStore
+from ..models import whisper
 from ..models.model import api, init_model_params
 from ..sessions import SessionService
 from ..train.serve_step import make_decode_step
@@ -97,6 +100,14 @@ def serve(arch: str, *, n_requests: int = 4, gen_tokens: int = 32,
         sess.prompts = torch.from_numpy(
             np.concatenate([shared, own], axis=1)).to(device)
         sess.cache = m.init_cache(cfg, n_requests, cache_len, device=device)
+        if cfg.family == "encdec":
+            # float64 draws -> float32 -> bf16 on the host, as the
+            # reference's `jnp.asarray(..., jnp.bfloat16)` rounds them
+            frames = torch.from_numpy(rng.standard_normal(
+                (n_requests, cfg.encoder.n_frames, cfg.d_model))) \
+                .to(torch.bfloat16)
+            enc = whisper.encode(params, frames.to(device), cfg)
+            sess.cache["cross"] = whisper.build_cross_cache(params, enc, cfg)
         sess.logits = None
         sess.generated = []
         sessions.append(sess)

@@ -1,5 +1,8 @@
 """End-to-end training driver with Chipmink incremental checkpointing.
-The port of `repro.launch.train`, for the dense family.
+The port of `repro.launch.train`.  Its batches hold tokens and labels,
+as the reference's do, so it trains the decoder families (dense, moe,
+ssm, hybrid); the vlm and encdec families need patch embeddings or
+frames, which neither package's trainer supplies.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --reduced --steps 50 --save-every 10 --store /tmp/ck [--device cpu]

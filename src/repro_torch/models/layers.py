@@ -1,4 +1,5 @@
-"""Shared model layers: norms, projections, rotary embeddings, MLPs.
+"""Shared model layers: norms, projections, rotary embeddings (RoPE and
+Qwen2-VL's multimodal M-RoPE), MLPs.
 
 The port of `repro.models.layers`.  All layers are pure functions over
 nested dicts of tensors.  Parameter shapes, dtypes, logical sharding axes
@@ -8,16 +9,17 @@ the abstract shape checks of the tests.
 
 Casts follow the reference one by one, since a tolerance hides a wrong
 cast only at small widths: norms and RoPE compute in float32 and cast
-back, `dense` multiplies in the operands' dtype (bf16 in, bf16 out) and
-adds its bias in that dtype, and the activations round every step to
-bf16 as the reference's do.
+back, `dense` multiplies in the operands' dtype (bf16 in, bf16 out;
+mixed operands promoted as `jnp.einsum` promotes them) and adds its bias
+in that dtype, and the activations round every step to bf16 as the
+reference's do.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import struct
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -116,24 +118,51 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b).  Operands of two dtypes are promoted first, as
+    `jnp.einsum` does: a bf16 token times the MoE router's float32
+    weight is a float32 product."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` as XLA lowers it on the reference's CPU: in bf16,
+    1 / (1 + exp(-x)) with every step rounded to bf16 (bit-equal); in
+    float32, `torch.sigmoid` (the closer of the two there, within an
+    ulp)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.silu` step by step in x's dtype: x * sigmoid(x), the
-    sigmoid as 1 / (1 + exp(-x)) with every step rounded to that dtype,
-    as XLA lowers the reference's bf16 `logistic`.  (`F.silu` rounds
-    once; with it the decode step falls outside the tests' tolerance.)"""
-    return x * (1 / (1 + torch.exp(-x)))
+    """`jax.nn.silu`: x * `sigmoid`(x), each step in x's dtype.  (`F.silu`
+    rounds once; with it the decode step falls outside the tests'
+    tolerance.)"""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`, the reference's ``logaddexp(x, 0)``: in bf16,
+    max(x, 0) + log1p(exp(-|x|)) with every step rounded to bf16
+    (bit-equal); in float32, `torch.logaddexp` (within an ulp)."""
+    if x.dtype == torch.float32:
+        return torch.logaddexp(x, torch.zeros((), device=x.device))
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.gelu(x, approximate=True)` step by step in x's dtype."""
+    """`jax.nn.gelu(x, approximate=True)` step by step in x's dtype, its
+    constants rounded to that dtype first, as the reference's weak-typed
+    Python floats are (bit-equal in bf16)."""
     c = round_to(math.sqrt(2 / math.pi), x.dtype)
-    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+    a = round_to(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x ** 3))))
     return x * cdf
 
 
@@ -170,6 +199,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(D, theta, device=x.device)               # (D/2,)
     ang = positions[..., None].float() * inv                  # (..., S, D/2)
     cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary embedding [arXiv:2409.12191].
+
+    x: (B, S, H, D); positions: (3, B, S): temporal / height / width ids.
+    The D/2 frequency lanes are partitioned into `sections` (t, h, w);
+    each section rotates by its own position stream.
+    """
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
+                         f"to head_dim / 2 = {D // 2}")
+    inv = rope_freqs(D, theta, device=x.device)               # (D/2,)
+    pieces = []
+    start = 0
+    for sec, pos in zip(sections, positions):
+        pieces.append(pos[..., None].float() * inv[start:start + sec])
+        start += sec
+    ang = torch.cat(pieces, dim=-1)                           # (B, S, D/2)
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -172,7 +172,7 @@ def test_detector_matches_reference(mode):
                 "host": np.arange(32, dtype=np.int32) + step % 3}
 
     ref = RefDetector(chunk_bytes=1 << 12, **kw)
-    port = ChangeDetector(chunk_bytes=1 << 12, **kw)
+    port = ChangeDetector(chunk_bytes=1 << 12, device="cpu", **kw)
     for step in range(4):
         st = state(step)
         rg = ref_build_graph({k: v if k == "host" else jnp.asarray(v)

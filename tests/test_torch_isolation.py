@@ -64,3 +64,12 @@ def test_chipmink_without_cuda_raises(monkeypatch):
         serve("qwen1.5-0.5b", log=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train("qwen1.5-0.5b", steps=1, log=False)
+    # the public classes below Chipmink default to the card as well
+    from repro_torch.core import Unpodder
+    from repro_torch.core.change_detector import ChangeDetector
+    from repro_torch.core.memo import GlobalMemoSpace
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChangeDetector()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Unpodder(GlobalMemoSpace(), lambda pod: b"")
+    assert ChangeDetector(device="cpu").device.type == "cpu"

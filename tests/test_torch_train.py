@@ -50,6 +50,9 @@ from repro_torch.runtime import StragglerMonitor, TrainingSupervisor
 from repro_torch.train import data, grad_compress, optimizer, train_step
 
 DENSE = ("qwen1.5-0.5b", "qwen2.5-14b", "starcoder2-3b", "starcoder2-7b")
+#: the other families
+FAMILIES = ("granite-moe-3b-a800m", "kimi-k2-1t-a32b", "falcon-mamba-7b",
+            "recurrentgemma-9b", "qwen2-vl-2b", "whisper-base")
 LR = 1e-3
 #: loss, grad norm and whole-run losses, relative
 RTOL_LOSS = 2e-2
@@ -130,9 +133,25 @@ def ref_state_np(cfg, opt_cfg, seed=0, grad_compress=False):
 
 
 def batch_np(cfg, B=2, S=16, seed=0):
+    """Tokens and labels, and the stub frontends' float32 inputs where the
+    family has one (both packages round them to bf16 alike).  A VLM
+    sequence holds its patches and then 8 text tokens: with patches alone
+    every position's temporal M-RoPE stream is 0, a key bias then shifts
+    every score of a query alike in those lanes, and its gradient there is
+    0 but for rounding; with 8 text tokens the angles stay small enough
+    that it still cancels to a few ulps of its terms."""
+    if cfg.vlm is not None:
+        S = max(S, cfg.vlm.n_patches + 16)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
-    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.vlm is not None:
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, min(cfg.vlm.n_patches, S), cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def as_jax(batch):
@@ -352,10 +371,18 @@ def _assert_step_close(ref, port, what):
             + 1e-12, f"{what} opt/{path}"
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_train_step_matches_the_reference(arch):
     ref, port = _step_pair(arch)
     _assert_step_close(ref, port, arch)
+    (_, rmet), (_, pmet) = ref, port
+    assert sorted(pmet) == sorted(rmet)
+    if "expert_counts" in rmet:            # the MoE touch report, exact
+        assert pmet["expert_counts"].dtype == torch.float32
+        assert np.array_equal(pmet["expert_counts"].numpy(),
+                              np.asarray(rmet["expert_counts"]))
+        np.testing.assert_allclose(float(pmet["moe_aux"]),
+                                   float(rmet["moe_aux"]), rtol=1e-5)
 
 
 def test_grad_compress_step_matches_the_reference():
@@ -467,19 +494,32 @@ def test_frozen_leaves_are_returned_as_the_same_objects():
 # ---------------------------------------------------------------------------
 
 def test_touched_prefixes_match_the_reference():
+    """The touch report of the port's own MoE step: its `expert_counts`
+    (from `loss_fn` on a batch), and the same with one layer's experts
+    all idle, give the reference's prefixes."""
+    from repro_torch.models.model import api
     arch = "granite-moe-3b-a800m"
     cfg, ref_cfg = get_config(arch).reduced(), ref_get_config(arch).reduced()
     n_moe = sum(1 for _, f in cfg.layer_plan() if f == "moe")
     assert n_moe >= 2
-    counts = np.random.default_rng(5).integers(
-        0, 3, size=(n_moe, cfg.moe.n_experts)).astype(np.int32)
-    counts[1] = 0
-    for frozen in ((), ("params/layers/0",)):
-        want = ref_ts.touched_prefixes_from_metrics(
-            ref_cfg, {"expert_counts": jnp.asarray(counts)}, frozen)
-        for c in (counts, torch.from_numpy(counts)):
-            assert train_step.touched_prefixes_from_metrics(
-                cfg, {"expert_counts": c}, frozen) == want
+    host = ref_state_np(ref_cfg, ref_opt.OptConfig(lr=LR))
+    _, met = api(cfg).loss_fn(params_from_numpy(host["params"], "cpu"),
+                              as_torch(batch_np(cfg)), cfg, remat=False)
+    counts = met["expert_counts"]
+    assert counts.shape == (n_moe, cfg.moe.n_experts)
+    assert float(counts.sum()) == n_moe * 2 * 16 * cfg.moe.top_k
+    idle = counts.clone()
+    idle[1] = 0
+    for c in (counts, idle):
+        for frozen in ((), ("params/layers/0",)):
+            want = ref_ts.touched_prefixes_from_metrics(
+                ref_cfg, {"expert_counts": jnp.asarray(c.numpy())}, frozen)
+            for got in (c, c.numpy()):
+                assert train_step.touched_prefixes_from_metrics(
+                    cfg, {"expert_counts": got}, frozen) == want
+    assert ("params/layers/1/ffn" in train_step.touched_prefixes_from_metrics(
+        cfg, {"expert_counts": counts})) != ("params/layers/1/ffn" in
+        train_step.touched_prefixes_from_metrics(cfg, {"expert_counts": idle}))
     dense = get_config("qwen1.5-0.5b").reduced()
     assert train_step.touched_prefixes_from_metrics(
         dense, {"nll": torch.zeros(())}) is None
