@@ -89,8 +89,10 @@ Phases (each raises on failure; the script then exits non-zero):
      next save reuses pods; one decode step runs under the sync debug
      mode, and decode steps are timed by CUDA events.  (c) K1's time at
      the serving plan against its bound (phase 1's timing).
- 10. Training at full width (Qwen1.5-0.5B, 24 layers, 4.64 GB train state,
-     8 x 128 tokens per step, 256 KiB chunks), through the entry point
+ 10. Training at full width (Qwen1.5-0.5B, 8 x 128 tokens per step, 256
+     KiB chunks; 10a and 10c cut to 4 layers, 2.07 GB of train state, to
+     keep the script's time; 10b at 24 layers, 4.64 GB), through the entry
+     point
      `repro_torch.launch.train.train(..., reduced=False, device="cuda")`,
      each step timed by CUDA events, each `save()` call timed (an async
      one under `set_sync_debug_mode("error")`) and every fetch counted per
@@ -137,6 +139,24 @@ Phases (each raises on failure; the script then exits non-zero):
      phase 1).  (c) `serve(arch,
      reduced=False)` once, sync: 4 snapshots, K1 launched, the evicted
      session's bytes reclaimed.  Prints the phase's wall time.
+ 12. Mesh, sharding rules, the dry-run and elastic restore, over
+     `torch.distributed`: (c) on a single-rank NCCL group and its (1, 1)
+     `make_local_mesh()`, phase 10b's last 24-layer Qwen1.5-0.5B commit
+     (`load(names={"params"})`) restored with `elastic_restore` (every
+     shard bit-equal to the live parameters, timed), then
+     `compressed_psum` over one step's full-width gradients on the mesh's
+     ``data`` group, bit-equal to `quantize` then `dequantize`; (a) the
+     dry-run (`python -m repro_torch.launch.dryrun`, one fake process
+     group per cell in worker processes) of every arch's decode_32k on
+     (data=16, model=16) and Qwen1.5-0.5B's train_4k and prefill_32k on
+     both production meshes, each cell `ok` with its peak, flops and
+     wire bytes per device, and the cells whose peak exceeds the card's
+     memory named; (d) meanwhile the four `examples_torch/` scripts on
+     the card, each a process that must exit 0 (K1's launches read in
+     each); (b) starcoder2-3b decode_32k and falcon-mamba-7b long_500k
+     traced on the (1, 1) mesh and run once on the card at full width
+     (random parameters, `build_cell` over the NCCL group): the card's
+     peak allocation within 15% of the predicted one.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device line
@@ -182,6 +202,8 @@ SERVE_CHUNK_BYTES = 1 << 11
 #: (8 x 128 tokens per step, 256 KiB chunks) for 8 steps, saving every 4
 TRAIN = dict(steps=8, save_every=4, global_batch=8, seq_len=128)
 TRAIN_CHUNK_BYTES = 1 << 18
+#: depth of 10a and 10c (10b trains all 24 layers)
+TRAIN_LAYERS = 4
 #: phase 11's models, each at its full published configuration
 #: (`src/repro_torch/configs/`): MoE, SSM, hybrid, enc-dec, VLM
 FAMILY_ARCHS = ("granite-moe-3b-a800m", "falcon-mamba-7b",
@@ -1815,18 +1837,20 @@ def host_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
-def observe_train(device, **kw) -> dict:
+def observe_train(device, layers=None, **kw) -> dict:
     """One `repro_torch.launch.train.train("qwen1.5-0.5b", reduced=False,
-    device="cuda", **kw)` run, instrumented through the names that module
-    calls: each step timed by CUDA events (not the static checker's trace
-    of it), the checker's seconds, every `save()` call's host time (an
-    async one under `set_sync_debug_mode("error")`), K1's row table per
-    launch, fetches per thread, K1 launches, peak device memory."""
+    device="cuda", **kw)` run (its depth cut to `layers` if given),
+    instrumented through the names that module calls: each step timed by
+    CUDA events (not the static checker's trace of it), the checker's
+    seconds, every `save()` call's host time (an async one under
+    `set_sync_debug_mode("error")`), K1's row table per launch, fetches
+    per thread, K1 launches, peak device memory."""
+    import dataclasses
     import repro_torch.launch.train as lt
     from repro_torch.kernels import batch as kb
     from repro_torch.kernels import fingerprint as fp
     real = (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
-            kb.fingerprint_leaves_cmp)
+            kb.fingerprint_leaves_cmp, lt.get_config)
     obs = dict(events=[], save_calls=[], k1_rows=[], trace_s=None)
     tracing = [False]
 
@@ -1869,10 +1893,15 @@ def observe_train(device, **kw) -> dict:
         obs["k1_rows"].append((table.n_rows, int((table.lengths > 0).sum())))
         return real[3](leaves, table, *args, **kw)
 
+    def get_config(arch):
+        cfg = real[4](arch)
+        return cfg if layers is None else dataclasses.replace(
+            cfg, n_layers=layers)
+
     (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
-     kb.fingerprint_leaves_cmp) = (Observed, make_train_step,
-                                   readonly_state_leaves,
-                                   fingerprint_leaves_cmp)
+     kb.fingerprint_leaves_cmp, lt.get_config) = (
+        Observed, make_train_step, readonly_state_leaves,
+        fingerprint_leaves_cmp, get_config)
     caller = threading.get_ident()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -1886,7 +1915,7 @@ def observe_train(device, **kw) -> dict:
             obs["wall"] = time.perf_counter() - t0
     finally:
         (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
-         kb.fingerprint_leaves_cmp) = real
+         kb.fingerprint_leaves_cmp, lt.get_config) = real
     obs.update(out=out, launches=fp.launches["fingerprint_cmp"],
                peak=torch.cuda.max_memory_allocated(device),
                caller_fetches=fetches.counts[caller],
@@ -1993,7 +2022,7 @@ def phase_train(gen, device, card: str) -> dict:
     launches = 0
 
     # -- 10a: the trainer, async ----------------------------------------
-    a = observe_train(device, **TRAIN)
+    a = observe_train(device, layers=TRAIN_LAYERS, **TRAIN)
     launches += a["launches"]
     out = a["out"]
     log_train("10a async", a, card)
@@ -2053,16 +2082,20 @@ def phase_train(gen, device, card: str) -> dict:
         f"bytes ({100 * second['bytes_written'] / boot['bytes_written']:.2f}"
         f"% of the bootstrap's {boot['bytes_written']}); K1's real rows "
         f"{real0} -> {real1} (the frozen leaves hold {frozen_rows})")
-    out["chipmink"].close()
-    del b, out
+    # phase 10's last 24-layer commit: its Chipmink and live parameters
+    # stay for phase 12c's restore
+    commit = dict(ck=out["chipmink"], live=out["state"]["params"])
+    del b, out, params
     torch.cuda.empty_cache()
 
     # -- 10c: resume from a commit, against 10a's uninterrupted 8 steps --
-    c = observe_train(device, **dict(TRAIN, steps=4, save_every=4,
-                                     async_save=False))
+    c = observe_train(device, layers=TRAIN_LAYERS,
+                      **dict(TRAIN, steps=4, save_every=4,
+                             async_save=False))
     launches += c["launches"]
     log_train("10c 4 steps, sync", c, card)
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              n_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
     loaded = c["out"]["chipmink"].load()
     state = train_state_from_numpy(loaded, device)
@@ -2123,7 +2156,7 @@ def phase_train(gen, device, card: str) -> dict:
     ck.close()
     del final, state, ck, sup
     torch.cuda.empty_cache()
-    return dict(launches=launches, k1=k1)
+    return dict(launches=launches, k1=k1, commit=commit)
 
 
 # --------------------------------------------------------------------------
@@ -2560,6 +2593,245 @@ def phase_families(gen, device, k1_by_plan: dict) -> dict:
         f"launched {out['launches']} times on its session saves")
     return out
 
+# --------------------------------------------------------------------------
+# phase 12: mesh, sharding rules, the dry-run, elastic restore, examples
+# --------------------------------------------------------------------------
+
+#: 12b: cells traced on one card's (1, 1) mesh and then run on the card
+DRYRUN_ON_CARD = (("starcoder2-3b", "decode_32k"),
+                  ("falcon-mamba-7b", "long_500k"))
+#: 12b: largest relative gap of the measured peak from the predicted one
+PEAK_TOL = 0.15
+#: 12a's dry-run processes (each traces one cell; the host has 8 cores)
+DRYRUN_JOBS = 8
+EXAMPLES = ("quickstart.py", "branch_and_timetravel.py",
+            "incremental_serving.py", "elastic_restart.py")
+
+
+def dryrun_cells() -> list:
+    """12a's cells and 12b's, as `repro_torch.launch.dryrun --cells`
+    names them: every arch's decode_32k on (data=16, model=16),
+    Qwen1.5-0.5B's train_4k and prefill_32k on both production meshes,
+    and 12b's cells on one card's (1, 1) mesh."""
+    from repro_torch.configs import ARCHS
+    cells = [f"{a}:decode_32k:pod16x16" for a in ARCHS]
+    cells += [f"qwen1.5-0.5b:{s}:{m}" for s in ("train_4k", "prefill_32k")
+              for m in ("pod16x16", "pod2x16x16")]
+    return cells + [f"{a}:{s}:local1x1" for a, s in DRYRUN_ON_CARD]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def src_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(REPO / "src"))
+
+
+def peak_on_card(arch: str, shape: str, mesh, gen, device) -> int:
+    """12b: `build_cell` on one card's mesh, the step run once on random
+    parameters at full width: the card's peak allocation less what was
+    allocated before its arguments."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import set_active_mesh
+    cfg = get_config(arch)
+    set_active_mesh(mesh)
+    try:
+        step, args_abs, shardings = dryrun.build_cell(arch, shape, mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = dryrun.concrete_args(cfg, SHAPES[shape].kind, args_abs,
+                                    shardings, gen, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with implicit_replication():
+            out = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"[dryrun] 12b {arch} {shape}: the step on the card in "
+            f"{time.perf_counter() - t:.3f} s")
+        del out, args
+    finally:
+        set_active_mesh(None)
+    torch.cuda.empty_cache()
+    return peak
+
+
+def restore_and_psum(commit: dict, mesh, device) -> dict:
+    """12c: phase 10's last 24-layer commit restored onto the mesh,
+    every shard bit-equal to the live parameters; then `compressed_psum`
+    over one step's full-width gradients, bit-equal to `quantize` then
+    `dequantize` (on one rank the sum is the payload itself)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.model import api, model_logical_axes
+    from repro_torch.runtime.fault_tolerance import elastic_restore
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.grad_compress import (compressed_psum,
+                                                 dequantize, quantize)
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.tree import tree_leaves, tree_map
+    cfg = get_config("qwen1.5-0.5b")
+    ck, live = commit["ck"], commit["live"]
+    t0 = time.perf_counter()
+    loaded = ck.load(names={"params"})["params"]
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = elastic_restore(loaded, mesh, model_logical_axes(cfg))
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    bit_equal(tree_map(lambda d: d.to_local(), restored), live)
+    n_leaves = len(tree_leaves(restored))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(live))
+    log(f"[restore] 12c: the 24-layer commit ({n_leaves} leaves, {n_bytes} "
+        f"bytes) loaded in {t_load:.3f} s, restored onto "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in {t_restore:.3f} s;"
+        f" every shard bit-equal to the live parameters")
+    ck.close()
+    del restored, loaded
+    pipe = TokenPipeline(cfg.vocab, TRAIN["global_batch"], TRAIN["seq_len"])
+    grad_fn = value_and_grad(lambda p, b: api(cfg).loss_fn(p, b, cfg,
+                                                           remat=False))
+    _, grads = grad_fn(live, batch_on(pipe.next_batch(), device))
+    group = mesh.get_group("data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summed = tree_map(lambda g: compressed_psum(g, group), grads)
+    torch.cuda.synchronize()
+    t_psum = time.perf_counter() - t0
+    want = tree_map(lambda g: dequantize(*quantize(g), g.shape, g.dtype),
+                    grads)
+    bit_equal(summed, want)
+    log(f"[restore] 12c: compressed_psum over the {len(tree_leaves(grads))} "
+        f"full-width gradient leaves in {t_psum:.3f} s on the single-rank "
+        f"group, bit-equal to quantize -> dequantize")
+    del grads, summed, want
+    torch.cuda.empty_cache()
+    return dict(restore_s=t_restore, load_s=t_load, psum_s=t_psum,
+                n_bytes=n_bytes)
+
+
+_EXAMPLE_RUNNER = """
+import runpy, sys
+path = sys.argv[1]
+sys.argv = [path]
+runpy.run_path(path, run_name="__main__")
+from repro_torch.kernels import fingerprint as fp
+print("K1_LAUNCHES", fp.launches["fingerprint_cmp"])
+"""
+
+
+def run_examples() -> int:
+    """12d: the four examples on the card at once, each a process of its
+    own running the script with its defaults; each must exit 0.  Returns
+    K1's launches in them (read from each process after its script)."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _EXAMPLE_RUNNER,
+         str(REPO / "examples_torch" / name)], cwd=REPO, env=src_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    launches = 0
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"12d: {name} exited {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        n = int(out.split("K1_LAUNCHES")[-1])
+        launches += n
+        last = [l for l in out.splitlines() if l.strip()][-2]
+        log(f"[examples] 12d {name}: exit 0 at "
+            f"{time.perf_counter() - t0:.1f} s, K1 launched {n} times; "
+            f"{last[:160]}")
+    return launches
+
+
+def phase_mesh(commit: dict, gen, device) -> dict:
+    """Phase 12 (see the module docstring): 12c on a single-rank NCCL
+    group; then the dry-run of 12a's and 12b's cells runs in worker
+    processes while 12d's examples run; then 12b holds two cells'
+    predicted peaks against the card.  Returns K1's launches in the
+    examples and the phase's numbers."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    cells = dryrun_cells()
+    for cell in cells:     # results of an earlier run must not stand in
+        (Path(dryrun.ARTIFACT_DIR) / ("__".join(cell.split(":"))
+                                      + ".json")).unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    traced = None
+    try:
+        mesh = make_local_mesh(device_type="cuda")
+        restored = restore_and_psum(commit, mesh, device)
+        t_dryrun = time.perf_counter()
+        traced = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+             ",".join(cells), "--jobs", str(DRYRUN_JOBS), "--device-type",
+             "cuda"], cwd=REPO, env=src_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        t_examples = time.perf_counter()
+        launches = run_examples()
+        t_examples = time.perf_counter() - t_examples
+        out, err = traced.communicate(timeout=900)
+        t_dryrun = time.perf_counter() - t_dryrun
+        results = {}
+        for cell in cells:
+            path = Path(dryrun.ARTIFACT_DIR) / \
+                ("__".join(cell.split(":")) + ".json")
+            if not path.exists():
+                raise AssertionError(f"12a: no result for {cell}: "
+                                     f"{err[-3000:]}")
+            results[cell] = r = json.loads(path.read_text())
+            log(f"[dryrun] {cell}: ok={r['ok']} trace {r['compile_s']:.1f} "
+                f"s, peak {r['peak_bytes_per_device'] / 2**30:.3f} GiB per "
+                f"device, {r['flops_per_device']:.4e} flops per device, "
+                f"{r['bytes_per_device']:.4e} bytes per device, wire "
+                f"{r['collective_wire_bytes'] / 2**20:.1f} MiB in "
+                f"{r['n_collectives']} collectives {r['collectives']}"
+                + ("" if r["ok"] else f"; error {r['error']}"))
+        bad = [c for c, r in results.items() if not r["ok"]]
+        if bad or traced.returncode != 0:
+            raise AssertionError(f"12a: cells not ok: {bad}; exit "
+                                 f"{traced.returncode}")
+        total = torch.cuda.get_device_properties(device).total_memory
+        over = [c for c, r in results.items()
+                if r["peak_bytes_per_device"] > total]
+        log(f"[dryrun] 12a: {len(cells)} cells ok in {t_dryrun:.1f} s wall "
+            f"({DRYRUN_JOBS} processes); predicted peak above the card's "
+            f"{total} bytes: {over or 'none'}")
+        peaks = {}
+        for arch, shape in DRYRUN_ON_CARD:
+            want = results[f"{arch}:{shape}:local1x1"][
+                "peak_bytes_per_device"]
+            got = peak_on_card(arch, shape, mesh, gen, device)
+            gap = got / want - 1
+            log(f"[dryrun] 12b {arch} {shape} on (data=1, model=1): "
+                f"predicted peak {want} bytes, measured on the card {got} "
+                f"bytes ({100 * gap:+.2f}%)")
+            if abs(gap) > PEAK_TOL:
+                raise AssertionError(f"12b: {arch} {shape} peak {got} is "
+                                     f"{100 * gap:+.1f}% off the predicted "
+                                     f"{want}")
+            peaks[(arch, shape)] = (want, got)
+    finally:
+        if traced is not None and traced.poll() is None:
+            traced.kill()
+        dist.destroy_process_group()
+    log(f"[mesh] phase 12: {time.perf_counter() - t0:.1f} s wall (dry-run "
+        f"{t_dryrun:.1f} s, examples {t_examples:.1f} s)")
+    return dict(launches=launches, restored=restored, peaks=peaks)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2567,6 +2839,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=QWEN1_5_0_5B["layers"],
                     help="depth of the main-path state (full width always)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2628,6 +2901,12 @@ def main(argv=None) -> int:
     trained = timed("phase 10", phase_train, gen, device,
                     smi.stdout.strip().splitlines()[device.index])
     families = timed("phase 11", phase_families, gen, device, k1_by_path)
+    fp.reset_launch_counts()
+    meshed = timed("phase 12", phase_mesh, trained.pop("commit"), gen,
+                   device)
+    meshed["launches"] += fp.launches["fingerprint_cmp"]
+    if meshed["launches"] <= 0:
+        raise AssertionError("phase 12: K1 never launched")
 
     # the main path (phase 2), serving (phase 9a, sync and async),
     # training (phase 10) and the other families' session saves (phase
@@ -2637,7 +2916,7 @@ def main(argv=None) -> int:
                for mode, r in served.items()}
     launches = {"fingerprint_cmp": main["launches"]["fingerprint_cmp"]
                 + sum(serving.values()) + trained["launches"]
-                + families["launches"],
+                + families["launches"] + meshed["launches"],
                 "fingerprint": rung_launches["fingerprint"]}
     log(f"[numbers] fingerprint_cmp launches: "
         f"{main['launches']['fingerprint_cmp']} on the main path "
@@ -2645,7 +2924,8 @@ def main(argv=None) -> int:
         f"save), {serving} serving "
         f"({serving['sync'] / served['sync']['n_saves']} per session save), "
         f"{trained['launches']} training (1 per save), "
-        f"{families['launches']} on the other families' session saves")
+        f"{families['launches']} on the other families' session saves, "
+        f"{meshed['launches']} in phase 12's examples")
     kt = trained["k1"]
     log(f"[numbers] fingerprint_cmp at the training plan ({kt['n_rows']} "
         f"rows, 256 KiB chunks): {kt['ms']:.4f} ms per call by CUDA events, "
@@ -2687,6 +2967,7 @@ def main(argv=None) -> int:
             f"version {t['plain_ms']:.4f} ms, launches {launches[name]}; "
             f"kernel device time {t['device_ms']:.4f} ms by torch.profiler; "
             f"no single PyTorch call computes this digest")
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     log(smi.stdout.strip().splitlines()[device.index])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Attention: grouped-query (GQA/MQA), causal / sliding-window, with a
 q-chunked path for long prefill, plus single-token decode attention over
 (optionally ring-buffered) KV caches.  The port of
-`repro.models.attention`, without its sharding constraints.
+`repro.models.attention`.
 
 Layout conventions:
     q        (B, S, Hq,  D)
@@ -15,6 +15,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..parallel.sharding import (constrain, einsum, from_local, is_dtensor,
+                                 reshape, shard_offset)
+from .layers import round_to
 
 NEG_INF = -1e30
 
@@ -34,13 +38,20 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              q_chunk: Optional[int] = None) -> torch.Tensor:
+              q_chunk: Optional[int] = None, q_offset: int = 0,
+              mixed: bool = False) -> torch.Tensor:
     """Full (or q-chunked) grouped attention.
 
-    q: (B, S, Hq, D); k, v: (B, T, Hkv, D), queries and keys at the same
-    positions.  Returns (B, S, Hq, D).  `q_chunk` bounds each step's
-    score buffer to (B, Hq, q_chunk, T).
+    q: (B, S, Hq, D); k, v: (B, T, Hkv, D).  Returns (B, S, Hq, D).
+    `q_offset` positions the queries within the key timeline.  `q_chunk`
+    bounds each step's score buffer to (B, Hq, q_chunk, T).  `mixed=True`
+    scales Q in its own dtype (bf16) and multiplies the bf16 operands with
+    float32 accumulation, the reference's ``preferred_element_type=
+    float32``.  DTensor operands run shard by shard (`_attention_shards`).
     """
+    if is_dtensor(q):
+        return _attention_shards(q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk, mixed=mixed)
     B, S, Hq, D = q.shape
     _, T, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -51,8 +62,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def block(q_blk: torch.Tensor, offset: int) -> torch.Tensor:
         s = q_blk.shape[1]
-        scores = torch.einsum("bsngd,btnd->bngst", q_blk.float() * scale, kf)
-        q_pos = torch.arange(s, device=q.device) + offset
+        if mixed:
+            qs = q_blk * round_to(scale, q_blk.dtype)
+            scores = torch.einsum("bsngd,btnd->bngst", qs.float(), kf)
+        else:
+            scores = torch.einsum("bsngd,btnd->bngst",
+                                  q_blk.float() * scale, kf)
+        q_pos = torch.arange(s, device=q.device) + (q_offset + offset)
         bias = _mask_bias(q_pos, k_pos, causal=causal, window=window)
         scores = scores + bias[None, None, None, :, :]
         w = torch.softmax(scores, dim=-1)
@@ -65,9 +81,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off = 0
     while off < S:
         size = min(q_chunk, S - off)
-        outs.append(block(qg[:, off:off + size], off))
+        # the reference re-pins sequence-parallel sharding on the chunk;
+        # here DTensor queries were split before this loop
+        # (`_attention_shards`), so the chunk is a rank's own tensor
+        blk = constrain(qg[:, off:off + size],
+                        ("batch", "seq_model", None, None, None))
+        outs.append(block(blk, off))
         off += size
     return torch.cat(outs, dim=1)
+
+
+def _attention_shards(q, k, v, **kw) -> torch.Tensor:
+    """Sequence-parallel attention over DTensors: queries sharded over
+    batch and sequence (the reference's ``("batch", "seq_model", None,
+    None)``), keys and values over batch alone; each rank attends its own
+    query rows against the whole key timeline, at its offset in it."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    qp = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in q.placements]
+    kvp = [p if p == Shard(0) else Replicate() for p in qp]
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kvp), v.redistribute(mesh, kvp)
+    o = attention(q.to_local(), k.to_local(), v.to_local(),
+                  q_offset=shard_offset(q, 1), **kw)
+    return from_local(o, mesh, qp, q.shape)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -83,14 +121,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, Hq, D = q.shape
     _, T, Hkv, _ = k_cache.shape
     G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, D)
+    qg = reshape(q, B, Hkv, G, D)
     scale = D ** -0.5
-    scores = torch.einsum("bngd,btnd->bngt", qg.float() * scale,
+    scores = einsum("bngd,btnd->bngt", qg.float() * scale,
                           k_cache.float())
     idx = torch.arange(T, device=q.device)[None, :]          # (1, T)
     valid = idx < lengths[:, None]                            # (B, T)
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bngt,btnd->bngd", w.to(v_cache.dtype), v_cache)
-    return o.reshape(B, 1, Hq, D)
+    o = einsum("bngt,btnd->bngd", w.to(v_cache.dtype), v_cache)
+    return reshape(o, B, 1, Hq, D)

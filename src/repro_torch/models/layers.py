@@ -4,8 +4,9 @@ Qwen2-VL's multimodal M-RoPE), MLPs.
 The port of `repro.models.layers`.  All layers are pure functions over
 nested dicts of tensors.  Parameter shapes, dtypes, logical sharding axes
 and initializers are declared once via `ParamDef` tables (built in
-`transformer.param_defs`); the same table drives real initialization and
-the abstract shape checks of the tests.
+`transformer.param_defs`); the same table drives real initialization,
+the abstract `TensorSpec` trees of the dry-run (no allocation) and the
+logical-axes trees of the sharding rules.
 
 Casts follow the reference one by one, since a tolerance hides a wrong
 cast only at small widths: norms and RoPE compute in float32 and cast
@@ -19,11 +20,20 @@ from __future__ import annotations
 import dataclasses
 import math
 import struct
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.sharding import einsum, from_local, is_dtensor, shard_offset
+
 Path = Tuple[str, ...]
+
+
+class TensorSpec(NamedTuple):
+    """An abstract tensor (the reference's `jax.ShapeDtypeStruct`): the
+    leaves of the abstract parameter, input and cache trees."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +75,17 @@ def init_params(defs: ParamDefs, generator: torch.Generator, *,
                              dtype=torch.float32) * d.scale()).to(dt)
         flat[path] = v
     return unflatten(flat)
+
+
+def abstract_params(defs: ParamDefs,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """`TensorSpec` tree (dry-run: no allocation)."""
+    return unflatten({p: TensorSpec(tuple(d.shape), d.dtype or dtype)
+                      for p, d in defs.items()})
+
+
+def logical_axes(defs: ParamDefs) -> Dict:
+    return unflatten({p: d.axes for p, d in defs.items()})
 
 
 def unflatten(flat: Dict[Path, Any]) -> Dict:
@@ -124,10 +145,46 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    y = torch.matmul(x, w)
+    y = matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of `table` (V, E) at `tokens`.  For a DTensor table,
+    vocab-parallel: the table keeps only its vocab shards (its other dims
+    gathered), every rank reads the tokens its shard holds (zero rows for
+    the rest), and the rows sum over the vocab's mesh dims (a `Partial`
+    placement there); the tokens keep their shards on the other mesh
+    dims."""
+    if not is_dtensor(table):
+        return torch.nn.functional.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tp = [p if p == Shard(0) else Replicate() for p in table.placements]
+    table = table.redistribute(mesh, tp)
+    kp = [Replicate() if t == Shard(0) or not isinstance(p, Shard) else p
+          for t, p in zip(tp, tokens.placements)]
+    tokens = tokens.redistribute(mesh, kp)
+    local = table.to_local()
+    rel = tokens.to_local() - shard_offset(table, 0)
+    owned = ((rel >= 0) & (rel < local.shape[0]))[..., None]
+    rows = torch.nn.functional.embedding(
+        torch.clamp(rel, 0, local.shape[0] - 1), local)
+    rows = torch.where(owned, rows, torch.zeros((), dtype=rows.dtype,
+                                                device=rows.device))
+    out = [Partial() if t == Shard(0) else p for t, p in zip(tp, kp)]
+    return from_local(rows, mesh, out, tuple(tokens.shape) + table.shape[1:])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a (..., K) `x` and a (K, N) `w`; DTensors multiply
+    shard by shard (`sharding.einsum`)."""
+    if is_dtensor(x) or is_dtensor(w):
+        lead = "abcdefgh"[:x.ndim - 1]
+        return einsum(f"{lead}k,kn->{lead}n", x, w)
+    return torch.matmul(x, w)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

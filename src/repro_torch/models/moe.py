@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel.sharding import constrain, einsum, reshape
 from .layers import dense, silu, swiglu
 
 
@@ -35,6 +36,7 @@ class MoEConfig:
     n_shared: int = 0          # shared experts (always-on), DeepSeek/K2 style
     capacity_factor: float = 1.25
     n_groups: int = 16         # token groups (≈ data-parallel shards)
+    ep_logical: str = "experts"  # logical axis of the expert dim
 
 
 def _capacity(n_tokens_per_group: int, cfg: MoEConfig) -> int:
@@ -102,19 +104,26 @@ def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig
     """
     B, S, E = x.shape
     G = min(cfg.n_groups, B * S)
-    tokens = x.reshape(G, (B * S) // G, E)
+    n = (B * S) // G
+    # (B, S) -> (B, S/n, n) -> (G, n): groups of whole batch rows keep a
+    # batch-sharded x sharded
+    tokens = reshape(reshape(x, B, S // n, n, E), G, n, E) if S % n == 0 \
+        else reshape(x, G, n, E)
     logits = dense(tokens, params["router"])               # (G, n, X) f32
     dispatch, combine, aux = router_dispatch(logits, cfg)
-    expert_in = torch.einsum("gnxc,gne->xgce", dispatch,
+    # dispatch: (G, n, X, C) x (G, n, E) -> (X, G, C, E); the X-dim
+    # constraint turns the reshard into the expert all-to-all
+    expert_in = einsum("gnxc,gne->xgce", dispatch,
                              tokens.to(torch.bfloat16))
+    expert_in = constrain(expert_in, (cfg.ep_logical, None, None, None))
     Xn, Gn, Cn, En = expert_in.shape
-    ein = expert_in.reshape(Xn, Gn * Cn, En)
+    ein = reshape(expert_in, Xn, Gn * Cn, En)
     g = torch.bmm(ein, params["w_gate"])
     u = torch.bmm(ein, params["w_up"])
     h = silu(g) * u
-    eout = torch.bmm(h, params["w_down"]).reshape(Xn, Gn, Cn, En)
-    y = torch.einsum("xgce,gnxc->gne", eout, combine)
-    y = y.reshape(B, S, E).to(x.dtype)
+    eout = reshape(torch.bmm(h, params["w_down"]), Xn, Gn, Cn, En)
+    y = einsum("xgce,gnxc->gne", eout, combine)
+    y = reshape(y, B, S, E).to(x.dtype)
 
     if cfg.n_shared:
         y = y + swiglu(x, params["shared_gate"], params["shared_up"],

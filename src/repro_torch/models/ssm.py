@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import einsum
 from .layers import dense, silu, softplus
 
 
@@ -122,7 +123,7 @@ def selective_scan(params: Dict, x: torch.Tensor,
     for c in range(n_chunks):
         sl = slice(c * ck, (c + 1) * ck)
         hs, h = _scan_chunk(Abar[:, sl], Bx[:, sl], h)
-        ys.append(torch.einsum("bken,bkn->bke", hs, C[:, sl]))
+        ys.append(einsum("bken,bkn->bke", hs, C[:, sl]))
     y = torch.cat(ys, dim=1)[:, :L]
     y = y + x.float() * params["D"].float()
     return y.to(x.dtype)
@@ -133,8 +134,12 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv over time.  x: (B, L, E); w: (K, E).  The K
     taps are summed in order in x's dtype, as the reference's Python
     `sum`."""
-    K, L = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    B, L, E = x.shape
+    K = w.shape[0]
+    # zeros before the first step (`F.pad`'s values; DTensor's pad rule
+    # fails on a 2-D mesh in some torch releases)
+    xp = torch.cat([torch.zeros((B, K - 1, E), dtype=x.dtype,
+                                device=x.device), x], dim=1)
     y = sum(xp[:, i:i + L] * w[i][None, None, :] for i in range(K))
     return silu(y + b[None, None, :])
 
@@ -156,7 +161,7 @@ def conv_step(window: torch.Tensor, w: torch.Tensor,
               b: torch.Tensor) -> torch.Tensor:
     """The causal conv at the newest position of ``window`` (B, K, E), in
     float32: silu(sum_k window_k * w_k + b) -> (B, E)."""
-    conv = torch.einsum("bke,ke->be", window.float(), w.float())
+    conv = einsum("bke,ke->be", window.float(), w.float())
     return silu(conv + b.float())
 
 
@@ -174,7 +179,7 @@ def mamba_decode_step(params: Dict, x: torch.Tensor,
     xin1 = xin1.to(x.dtype)
     Abar, Bx, C = _ssm_coeffs(params, xin1, cfg)       # (B,1,E,N)
     new_state = Abar[:, 0] * ssm_state + Bx[:, 0]      # (B,E,N)
-    y = torch.einsum("ben,bn->be", new_state, C[:, 0])
+    y = einsum("ben,bn->be", new_state, C[:, 0])
     y = y + xin1[:, 0].float() * params["D"].float()
     y = (y.to(x.dtype) * silu(z[:, 0]))[:, None]
     out = dense(y, params["out_proj"])

@@ -1,7 +1,11 @@
 """Unified decoder stack of the dense / moe / ssm / hybrid / vlm families:
-the port of `repro.models.transformer`, without the reference's
-sharding constraints (whisper's enc-dec lives in `whisper.py` and reuses
-these pieces).
+the port of `repro.models.transformer` (whisper's enc-dec lives in
+`whisper.py` and reuses these pieces).  Forward passes apply the
+reference's divisibility-aware sharding constraints
+(`parallel/sharding.constrain`, identities without an active mesh):
+batch over (pod, data); attention scores sequence-parallel over `model`;
+decode KV-cache time over `model`; experts / fused head / ffn dims over
+`model`.
 
 Each layer is (mixer, ffn) from `cfg.layer_plan()`:
     mixer ∈ {attn, attn_local, mamba, rglru}
@@ -23,16 +27,19 @@ reference's jitted step returns them (`step_cache`).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import (constrain, einsum, from_local, is_dtensor,
+                                 reshape, shard_offset)
 from .attention import attention, decode_attention
-from .layers import (ParamDef, ParamDefs, apply_mrope, apply_rope, dense,
-                     gelu_mlp, gelu_tanh, layer_norm, rms_norm, round_to,
-                     sigmoid, swiglu)
+from .layers import (ParamDef, ParamDefs, TensorSpec, apply_mrope,
+                     apply_rope, dense, embedding, gelu_mlp, gelu_tanh,
+                     layer_norm, matmul, rms_norm, round_to, sigmoid,
+                     swiglu)
 from .moe import MoEConfig, moe_ffn
 from .rglru import lru_coeffs
 from .ssm import (SSMConfig, causal_conv1d, conv_step, linear_scan,
@@ -207,7 +214,9 @@ def _moe_cfg(cfg: ArchConfig, n_tokens: int) -> MoEConfig:
     return MoEConfig(n_experts=m.n_experts, top_k=m.top_k,
                      expert_ff=m.expert_ff, n_shared=m.n_shared,
                      capacity_factor=m.capacity_factor,
-                     n_groups=math.gcd(n_tokens, 1024))
+                     n_groups=math.gcd(n_tokens, 1024),
+                     ep_logical="experts_dp" if cfg.ep_axis == "data"
+                     else "experts")
 
 
 def _ffn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -228,9 +237,9 @@ def _ffn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
 def _qkv(params: Dict, x: torch.Tensor, cfg: ArchConfig):
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(x, params["wq"], params.get("bq")).reshape(B, S, Hq, D)
-    k = dense(x, params["wk"], params.get("bk")).reshape(B, S, Hkv, D)
-    v = dense(x, params["wv"], params.get("bv")).reshape(B, S, Hkv, D)
+    q = reshape(dense(x, params["wq"], params.get("bq")), B, S, Hq, D)
+    k = reshape(dense(x, params["wk"], params.get("bk")), B, S, Hkv, D)
+    v = reshape(dense(x, params["wv"], params.get("bv")), B, S, Hkv, D)
     return q, k, v
 
 
@@ -252,8 +261,14 @@ def _attn_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     q, k = _rotate(q, k, cfg, positions, mrope_positions)
-    o = attention(q, k, v, causal=True, window=window, q_chunk=q_chunk)
-    return dense(o.reshape(B, S, cfg.n_heads * cfg.hd), params["wo"])
+    # sequence-parallel attention: queries' S over `model`, kv replicated
+    q = constrain(q, ("batch", "seq_model", None, None))
+    k = constrain(k, ("batch", None, None, None))
+    v = constrain(v, ("batch", None, None, None))
+    o = attention(q, k, v, causal=True, window=window, q_chunk=q_chunk,
+                  mixed=cfg.mixed_attn)
+    o = constrain(o, ("batch", "seq_model", None, None))
+    return dense(reshape(o, B, S, cfg.n_heads * cfg.hd), params["wo"])
 
 
 def _layer_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
@@ -276,6 +291,7 @@ def _layer_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, mixer: str,
         h, aux = _ffn(params["ffn"], _norm(x, params["norm2"], cfg), cfg,
                       ffn)
         x = x + h
+    x = constrain(x, ("batch", "seq_model" if cfg.seq_sp else None, None))
     return x, aux
 
 
@@ -285,8 +301,8 @@ def _apply_block_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, L, W); w: (H, W/H, W/H) block-diagonal gate."""
     B, L, W = x.shape
     H = w.shape[0]
-    y = torch.einsum("blhi,hij->blhj", x.reshape(B, L, H, W // H), w)
-    return y.reshape(B, L, W)
+    y = einsum("blhi,hij->blhj", reshape(x, B, L, H, W // H), w)
+    return reshape(y, B, L, W)
 
 
 def _lru_gates(params: Dict, x: torch.Tensor):
@@ -341,7 +357,7 @@ def embed_tokens(params: Dict, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     """Rows of the embedding, in bf16, times sqrt(d_model) rounded to bf16
     (the reference multiplies two bf16 values)."""
-    x = torch.nn.functional.embedding(tokens, params["embed"])
+    x = embedding(tokens, params["embed"])
     return x.to(torch.bfloat16) * round_to(math.sqrt(cfg.d_model),
                                            torch.bfloat16)
 
@@ -349,7 +365,7 @@ def embed_tokens(params: Dict, tokens: torch.Tensor,
 def logits_from(params: Dict, x: torch.Tensor,
                 cfg: ArchConfig) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head)
+    return matmul(x, head)
 
 
 def mrope_positions_for(cfg: ArchConfig, B: int, S: int, *,
@@ -394,6 +410,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                         params["patch_proj"])
         x = torch.cat([patches, x[:, P:]], dim=1)
         mrope_pos = mrope_positions_for(cfg, B, S, device=tokens.device)
+    x = constrain(x, ("batch", "seq_model" if cfg.seq_sp else None, None))
     positions = torch.arange(S, device=tokens.device)
     aux_all: Dict[str, List] = {}
     for i, (mixer, ffn) in enumerate(cfg.layer_plan()):
@@ -415,11 +432,46 @@ def sharded_cross_entropy(logits: torch.Tensor,
     """Mean of logsumexp minus the label's logit, in float32.  The
     reference picks the label's logit with a one-hot einsum (which never
     gathers a model-sharded vocab); on one device a gather gives the same
-    float32 value."""
+    float32 value.  On a DTensor the vocab stays sharded: the logsumexp
+    is taken from each shard's max and sum of exponentials, and each rank
+    picks the labels its shard holds (`_label_logits`)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)                             # (B, S)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]   # (B, S)
-    return torch.mean(lse - ll)
+    if is_dtensor(lf):
+        from torch.distributed.tensor import Replicate
+        m = torch.amax(lf, dim=-1, keepdim=True).detach()
+        s = torch.sum(torch.exp(lf - m), dim=-1)
+        # the shards' partial sums, summed here: left to the log, DTensor
+        # would gather the whole (B, S, V) gradient in the backward pass
+        s = s.redistribute(s.device_mesh, [
+            Replicate() if p.is_partial() else p for p in s.placements])
+        lse = torch.log(s) + m[..., 0]
+    else:
+        lse = torch.logsumexp(lf, dim=-1)                         # (B, S)
+    return torch.mean(lse - _label_logits(lf, labels))
+
+
+def _label_logits(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lf[..., labels]``, (B, S).  For a DTensor `lf`, vocab-parallel:
+    every rank reads the labels that fall in its vocab shard (zero for
+    the rest), and the shards' picks sum over the vocab's mesh dims (a
+    `Partial` placement there)."""
+    if not is_dtensor(lf):
+        return torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, places, last = lf.device_mesh, lf.placements, lf.ndim - 1
+    lead = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in places]
+    lab = labels.redistribute(mesh, lead).to_local().long()
+    local = lf.to_local()
+    rel = lab - shard_offset(lf, last)
+    owned = (rel >= 0) & (rel < local.shape[-1])
+    idx = torch.clamp(rel, 0, local.shape[-1] - 1)
+    picked = torch.where(owned, torch.gather(local, -1, idx[..., None])[..., 0],
+                         torch.zeros((), dtype=local.dtype,
+                                     device=local.device))
+    out = [Partial() if p == Shard(last) else q
+           for p, q in zip(places, lead)]
+    return from_local(picked, mesh, out, labels.shape)
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *,
@@ -431,8 +483,8 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *,
     x, aux = forward(params, batch["tokens"], cfg,
                      patch_embeds=batch.get("patch_embeds"),
                      q_chunk=q_chunk, remat=remat)
-    loss = sharded_cross_entropy(logits_from(params, x, cfg),
-                                 batch["labels"])
+    logits = constrain(logits_from(params, x, cfg), ("batch", None, "vocab"))
+    loss = sharded_cross_entropy(logits, batch["labels"])
     metrics = {"nll": loss}
     if "moe_aux" in aux:
         moe_loss = 1e-2 * torch.mean(torch.stack(aux["moe_aux"]))
@@ -451,9 +503,8 @@ def prefill(params: Dict, batch: Dict, cfg: ArchConfig, *,
     return logits_from(params, x[:, -1], cfg), {}
 
 
-class CacheSpec(NamedTuple):
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
+#: a cache leaf's abstract tensor
+CacheSpec = TensorSpec
 
 
 def cache_spec(cfg: ArchConfig, B: int, T: int) -> Dict:
@@ -488,6 +539,27 @@ def cache_spec(cfg: ArchConfig, B: int, T: int) -> Dict:
     return spec
 
 
+def cache_axes(cfg: ArchConfig) -> Dict:
+    """Logical-axes tree matching cache_spec (decode sharding: cache time
+    over `model`, state inner dims over `model`)."""
+    layers: Dict[str, Dict] = {}
+    for i, (mixer, _ffn) in enumerate(cfg.layer_plan()):
+        if mixer in ("attn", "attn_local"):
+            layers[str(i)] = {"k": ("batch", "cache_t", None, None),
+                              "v": ("batch", "cache_t", None, None)}
+        elif mixer == "mamba":
+            layers[str(i)] = {"conv": ("batch", None, "inner"),
+                              "ssm": ("batch", "inner", None)}
+        elif mixer == "rglru":
+            layers[str(i)] = {"conv": ("batch", None, "lru_heads"),
+                              "lru": ("batch", "lru_heads")}
+    axes = {"layers": layers, "pos": ()}
+    if cfg.encoder is not None:
+        from .whisper import encoder_cache_axes
+        axes["cross"] = encoder_cache_axes(cfg)
+    return axes
+
+
 def init_cache(cfg: ArchConfig, B: int, T: int, *, device: Any) -> Dict:
     def zeros(t: Any) -> Any:
         if isinstance(t, CacheSpec):
@@ -502,7 +574,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     """One decode step.  tokens: (B, 1) -> (logits (B, V), cache).  The
     cache's state tensors are updated in place; ``pos`` is replaced."""
     pos = cache["pos"]
-    x = embed_tokens(params, tokens, cfg)
+    x = constrain(embed_tokens(params, tokens, cfg), ("batch", None, None))
     new_layers: Dict[str, Dict] = {}
     for i, (mixer, ffn) in enumerate(cfg.layer_plan()):
         lp = params["layers"][str(i)]
@@ -554,7 +626,7 @@ def _decode_attn(params: Dict, x: torch.Tensor, lcache: Dict,
     else:
         q, k = _rotate(q, k, cfg, pos.expand(B, 1), None)
     o = ring_attend(q, k, v, lcache, pos)
-    return dense(o.reshape(B, 1, cfg.n_heads * cfg.hd), params["wo"])
+    return dense(reshape(o, B, 1, cfg.n_heads * cfg.hd), params["wo"])
 
 
 def ring_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -566,7 +638,33 @@ def ring_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_cache, v_cache = lcache["k"], lcache["v"]
     T = k_cache.shape[1]
     slot = torch.remainder(pos, T).to(torch.int64).view(1)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    write_slot(k_cache, k, slot)
+    write_slot(v_cache, v, slot)
+    q = constrain(q, ("batch", None, None, None))
+    k_cache = constrain(k_cache, ("batch", "cache_t", None, None))
+    v_cache = constrain(v_cache, ("batch", "cache_t", None, None))
     lengths = torch.clamp(pos + 1, max=T).expand(q.shape[0])
     return decode_attention(q, k_cache, v_cache, lengths)
+
+
+def write_slot(cache: torch.Tensor, x: torch.Tensor,
+               slot: torch.Tensor) -> None:
+    """``cache[:, slot] = x`` in place (`index_copy_` on dim 1; `slot` a
+    1-element int64 tensor).  On a DTensor cache whose time dim is
+    sharded, each rank writes its own shard's storage: the slot, moved
+    into the shard, is written where the shard owns it and rewritten
+    with its old value elsewhere (a masked write, so no host sync); `x`
+    and `slot` are DTensors on the cache's mesh then."""
+    if not is_dtensor(cache):
+        cache.index_copy_(1, slot, x.to(cache.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    x = x.redistribute(cache.device_mesh, [
+        Replicate() if p == Shard(1) else p for p in cache.placements])
+    x, slot = x.to_local(), slot.full_tensor()
+    local = cache.to_local()
+    rel = slot - shard_offset(cache, 1)
+    idx = torch.clamp(rel, 0, local.shape[1] - 1)
+    owned = ((rel >= 0) & (rel < local.shape[1])).view(1, 1, 1, 1)
+    local.index_copy_(1, idx, torch.where(owned, x.to(local.dtype),
+                                          local.index_select(1, idx)))

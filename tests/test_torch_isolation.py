@@ -9,6 +9,7 @@ from pathlib import Path
 import pytest
 
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+EXAMPLES = PORT.parents[1] / "examples_torch"
 SUBMODULES = sorted(
     "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
     for p in PORT.rglob("*.py") if p.name != "__init__.py")
@@ -22,6 +23,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or m == "repro" or m.startswith("repro."))
 print("BAD=" + ",".join(bad))
+import torch.distributed as dist
+print("PG=" + str(dist.is_available() and dist.is_initialized()))
 """
 
 
@@ -34,11 +37,18 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, env=env,
                          timeout=120, check=True).stdout
     assert "BAD=\n" in out, out
-    assert len(SUBMODULES) >= 51
+    # importing every module (the dry-run and the mesh included) starts
+    # no process group
+    assert "PG=False" in out, out
+    assert len(SUBMODULES) >= 54
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.parallel.sharding"} <= set(SUBMODULES)
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PORT)))
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + sorted(EXAMPLES.glob("*.py")),
+                         ids=lambda p: str(p.relative_to(
+                             PORT if PORT in p.parents else PORT.parents[1])))
 def test_port_sources_do_not_name_jax_or_reference(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
