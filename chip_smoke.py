@@ -12,7 +12,7 @@ Phases (each raises on failure; the script then exits non-zero):
      bit-exact, on a sweep of packed (C, W) matrices (W % 4 != 0,
      all-0xFFFFFFFF words, and views whose rows start 4, 8 or 12 bytes past
      a 16-byte boundary among them) and on every bucket shape the later
-     phases give K2, at 24 layers and at 2, and phase 9's serving buckets
+     phases give K2, at 24, 4 and 2 layers, and phase 9's serving buckets
      (read from the port's planner).  Then K1 reading the leaves in place
      (`fingerprint_leaves_cmp`) against its plain version, bit-exact in
      digests, dirty flags and speculated payload, on the main path's plan
@@ -45,7 +45,8 @@ Phases (each raises on failure; the script then exits non-zero):
      window of its own after a discarded warm-up window, averaged over the
      records kept; a shape with no sound window fails the phase.
   4. A `FileStore` round trip at 2 layers, reopened by a fresh instance.
-  5. Async saves at full width: `Chipmink(async_mode=True)` takes a
+  5. Async saves at full width (4 layers, 2.07 GB, to keep the
+     script's time): `Chipmink(async_mode=True)` takes a
      bootstrap save and 4 sparse rounds, each `save()` followed at once by
      the next round's in-place update (`add_` or `index_copy_` on the
      embedding rows of params, mu and nu) on the current stream, then one
@@ -56,7 +57,8 @@ Phases (each raises on failure; the script then exits non-zero):
      the snapshot's bytes, stalls, peak device memory, and the snapshot
      alone on an idle card (host time, the span of CUDA events around it,
      and the device time of its copies by torch.profiler).
-  6. Checkout at full width: save on main, `branch("exp")`, 4 sparse
+  6. Checkout at full width (4 layers, as phase 5): save on main,
+     `branch("exp")`, 4 sparse
      rounds, two leaves changed in place after the last save,
      `checkout("main")`.  The changed leaves are found (their chunks
      dirty) and restored from the store; every untouched leaf comes back
@@ -77,17 +79,26 @@ Phases (each raises on failure; the script then exits non-zero):
      tokens (2 KiB chunks), once synchronous and once with
      `async_mode=True`: 5 snapshots per session, each session's last
      snapshot far smaller than its tip, cross-session dedup > 1, the last
-     session evicted with bytes reclaimed; prints decode and stall times,
-     bytes per snapshot, per-stage times of a warm save and peak memory.
-     (b) The same traffic through `SessionService`, `make_decode_step` and
+     session evicted with bytes reclaimed, and one CUDA graph built per
+     session (`serve` decodes through `compile_decode_step`); prints ms
+     per step and stall times, bytes per snapshot, per-stage times of a
+     warm save and peak memory.  (b) The compiled step against the eager
+     one (`graph_against_eager`): the capture leaves the cache bit-equal,
+     8 graphed steps bit-equal to the eager step where two eager runs are
+     (else within 11a's rule), decode ms per step both ways by CUDA
+     events, the card's busy share and device ops per step under
+     torch.profiler, the device memory a graph holds.  Then the same
+     traffic through `SessionService`, `compile_decode_step` (one graph
+     per session) and
      `init_model_params`, sync and async: every commit loads back bit-exact
      against a clone taken at its `save_session`; fetches counted per
      thread (every save <= 2, exactly 1 where speculation covered the
      dirty chunks, none in the caller of an async save, which runs under
      `torch.cuda.set_sync_debug_mode("error")`); `resume_session` on a
-     second service over the same store restores a tip bit-exact and the
-     next save reuses pods; one decode step runs under the sync debug
-     mode, and decode steps are timed by CUDA events.  (c) K1's time at
+     second service over the same store restores a tip bit-exact, a new
+     graph is captured over the restored cache and the next save reuses
+     pods; one eager decode step and every capture run under the sync
+     debug mode.  (c) K1's time at
      the serving plan against its bound (phase 1's timing).
  10. Training at full width (Qwen1.5-0.5B, 8 x 128 tokens per step, 256
      KiB chunks; 10a and 10c cut to 4 layers, 2.07 GB of train state, to
@@ -128,17 +139,22 @@ Phases (each raises on failure; the script then exits non-zero):
      (`MODEL_TOL`), greedy tokens and expert choices equal wherever the
      CPU's margin exceeds twice it.  (b) 2 sessions x 4 requests, 8
      prompt tokens (7 shared) + 8 generated, 128 cache slots, a snapshot
-     every 8 tokens (2 KiB chunks) through `SessionService` at full
-     depth: every commit loads back bit-exact, fetches counted (1-2 per
+     every 8 tokens (2 KiB chunks) through `SessionService` and one
+     compiled step per session at full depth, after 9b's
+     `graph_against_eager` for the family: every commit loads back
+     bit-exact, fetches counted (1-2 per
      save, none in a decode step), a recurrent family's second save
      dirties every chunk of its SSM or LRU states, Whisper's second
-     save keeps every cross-K/V chunk and rewrites no cross pod; decode
-     ms by CUDA events, stalls, stage times, bytes, dedup, peak memory;
+     save keeps every cross-K/V chunk and rewrites no cross pod;
+     stalls, stage times, bytes, dedup, peak memory;
      K1 held bit-exact against its plain version on the live Mamba and
      Whisper session states (its times at each family's plan come from
      phase 1).  (c) `serve(arch,
-     reduced=False)` once, sync: 4 snapshots, K1 launched, the evicted
-     session's bytes reclaimed.  Prints the phase's wall time.
+     reduced=False)` once, sync: 4 snapshots, one CUDA graph per session,
+     K1 launched, the evicted session's bytes reclaimed.  Prints the
+     phase's wall time, then decode ms per step eager and graphed for
+     all six served configurations (phases 9 and 11) and `serve`'s ms
+     per step.
  12. Mesh, sharding rules, the dry-run and elastic restore, over
      `torch.distributed`: (c) on a single-rank NCCL group and its (1, 1)
      `make_local_mesh()`, phase 10b's last 24-layer Qwen1.5-0.5B commit
@@ -204,6 +220,8 @@ TRAIN = dict(steps=8, save_every=4, global_batch=8, seq_len=128)
 TRAIN_CHUNK_BYTES = 1 << 18
 #: depth of 10a and 10c (10b trains all 24 layers)
 TRAIN_LAYERS = 4
+#: depth of phases 5 and 6 (phase 2's main path saves all 24 layers)
+ASYNC_LAYERS = 4
 #: phase 11's models, each at its full published configuration
 #: (`src/repro_torch/configs/`): MoE, SSM, hybrid, enc-dec, VLM
 FAMILY_ARCHS = ("granite-moe-3b-a800m", "falcon-mamba-7b",
@@ -1566,6 +1584,138 @@ def profile_device(fn, n: int):
             sum(e.count for e in avgs) / n)
 
 
+#: steps of the compiled step against the eager one (9b, 11b)
+GRAPH_STEPS = 8
+
+
+class GraphsBuilt:
+    """Counts the compiled decode steps `serve` builds while installed
+    (by wrapping `compile_decode_step` in `repro_torch.launch.serve`) and
+    checks each holds a captured CUDA graph."""
+
+    def __enter__(self) -> "GraphsBuilt":
+        self.mod = importlib.import_module("repro_torch.launch.serve")
+        self.real = self.mod.compile_decode_step
+        self.graphs = []
+
+        def counted(*args, **kw):
+            g = self.real(*args, **kw)
+            if g.graph is None:
+                raise AssertionError("serve built a decode step with no "
+                                     "CUDA graph")
+            self.graphs.append(g)
+            return g
+
+        self.mod.compile_decode_step = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.compile_decode_step = self.real
+
+
+def graph_against_eager(name: str, cfg, params, make_cache, gen,
+                        device) -> dict:
+    """One session's compiled step (`compile_decode_step`) against the
+    eager step at full width.  The cache, after two eager steps, is
+    bit-equal after the capture to what it was before it; then
+    `GRAPH_STEPS` steps of equal random tokens through the graph and
+    through two eager copies of the cache: logits and every cache leaf
+    bit-equal to the eager copy where the two eager runs are bit-equal to
+    each other, else within 11a's rule (`card_close`).  Then decode ms
+    per step by CUDA events, eager (1 run of 10, to keep the script's
+    time) and graphed (2 runs of 10), the card's busy
+    share and device ops per step under torch.profiler (3 steps each
+    way), the capture's seconds and the device memory the graph holds
+    (the reserved bytes it adds: its pool and buffers)."""
+    from repro_torch.train.serve_step import (compile_decode_step,
+                                              make_decode_step)
+    step = make_decode_step(cfg)
+    cache = make_cache()
+    B = cache["layers"]["0"][next(iter(cache["layers"]["0"]))].shape[0]
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
+    for _ in range(2):
+        _, cache = step(params, cache, tok)
+    copies = [snapshot(cache) for _ in range(2)]
+    before = snapshot(cache)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    g = compile_decode_step(cfg, params, cache, device=device)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    held = torch.cuda.memory_reserved(device) - reserved
+    if g.graph is None:
+        raise AssertionError(f"{name}: no CUDA graph captured")
+    bit_equal(g.cache, before)
+    toks = torch.randint(0, cfg.vocab, (B, GRAPH_STEPS), generator=gen,
+                         device=device, dtype=torch.int32)
+    stable = bitwise = True
+    shares, err, first_diff = [], 0.0, None
+    for i in range(GRAPH_STEPS):
+        tk = toks[:, i:i + 1]
+        outs = []
+        for j in range(2):
+            lg, copies[j] = step(params, copies[j], tk)
+            outs.append(lg)
+        got, cache = g(tk)
+        here = [(f"step {i} logits", got, outs[0], outs[1]),
+                (f"step {i} pos", cache["pos"], copies[0]["pos"],
+                 copies[1]["pos"])] + [
+            (f"step {i} layer {li} {k}", t, copies[0]["layers"][li][k],
+             copies[1]["layers"][li][k])
+            for li, lc in cache["layers"].items() for k, t in lc.items()]
+        for what, t, a, b in here:
+            stable = stable and torch.equal(a, b)
+            if not torch.equal(t, a):
+                bitwise = False
+                first_diff = first_diff or what
+                err = max(err, card_close(t, a, f"{name} graph {what}",
+                                          shares))
+    if stable and not bitwise:
+        raise AssertionError(f"{name}: the graph differs from the eager "
+                             f"step, which is bit-stable, first at "
+                             f"{first_diff}")
+    del copies, before
+    eager_cache = snapshot(cache)
+
+    def eager():
+        nonlocal eager_cache
+        _, eager_cache = step(params, eager_cache, tok)
+
+    def graphed():
+        g(tok)
+
+    out = dict(capture_s=t_capture, held=held, stable=stable,
+               bitwise=bitwise, err=err,
+               min_share=min(shares) if shares else 1.0)
+    out["eager_ms"] = [cuda_ms(eager, 10)]
+    out["graph_ms"] = [cuda_ms(graphed, 10) for _ in range(2)]
+    out["eager_prof"] = profile_device(eager, 3)
+    out["graph_prof"] = profile_device(graphed, 3)
+    verdict = ("bit-equal to the eager step (two eager runs bit-equal)"
+               if bitwise and stable else
+               "bit-equal to the eager step (two eager runs differ)"
+               if bitwise else
+               f"within 11a's rule of the eager step, which is not "
+               f"bit-stable (max abs {err}, {100 * out['min_share']:.4f}%"
+               f" of each tensor within {MODEL_TOL})")
+    (eb, ew, eo), (gb, gw, go) = out["eager_prof"], out["graph_prof"]
+    log(f"[graph] {name}: the capture ({t_capture:.3f} s, {held} bytes "
+        f"of device memory held) left the cache bit-equal; "
+        f"{GRAPH_STEPS} graphed steps {verdict}; decode ms per step by "
+        f"CUDA events: eager {out['eager_ms']} (1 run of 10), graphed "
+        f"{out['graph_ms']} (2 runs of 10); profiled (3 steps), eager: the card busy "
+        f"{eb:.3f} ms of {ew:.3f} ms wall ({100 * eb / ew:.1f}%), {eo:.0f} "
+        f"device ops per step; graphed: {gb:.3f} ms of {gw:.3f} ms "
+        f"({100 * gb / gw:.1f}%; {100 * gb / min(out['graph_ms']):.1f}% "
+        f"of the graphed step's event time), {go:.0f} device ops per "
+        f"step")
+    del g, cache, eager_cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve(device) -> dict:
     """9a: the serving entry point at full width, sync and async (see the
     module docstring, phase 9)."""
@@ -1579,10 +1729,15 @@ def phase_serve(device) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         fp.reset_launch_counts()
-        res = serve("qwen1.5-0.5b", reduced=False, async_mode=async_mode,
-                    device="cuda", log=False, **SERVE)
+        with GraphsBuilt() as built:
+            res = serve("qwen1.5-0.5b", reduced=False,
+                        async_mode=async_mode, device="cuda", log=False,
+                        **SERVE)
         torch.cuda.synchronize()
         launches = dict(fp.launches)
+        if len(built.graphs) != n:
+            raise AssertionError(f"{mode}: serve built {len(built.graphs)} "
+                                 f"CUDA graphs for {n} sessions")
         peak = torch.cuda.max_memory_allocated(device)
         svc, snaps, fleet = res["service"], res["snap_stats"], res["fleet"]
         # TimeID order is submission order: round-robin over the sessions
@@ -1592,21 +1747,29 @@ def phase_serve(device) -> dict:
         written = [[s["bytes_written"] for s in snaps[k::n]]
                    for k in range(n)]
         dag = svc.pool[0].versions
+        # each snapshot's own new bytes: the pods its commit holds that the
+        # session's previous commit did not.  (`bytes_written` is the
+        # store's growth over a save body, so in async mode it also counts
+        # what other sessions' bodies wrote meanwhile.)
+        delta = []
         for k in range(n - 1):        # the last session was evicted
             ctx = svc.sessions[f"s{k}"]
             if ctx.n_saves != n_snaps or ctx.head != snaps[-n + k]["time_id"]:
                 raise AssertionError(f"{mode}: session s{k} made "
                                      f"{ctx.n_saves} saves, head {ctx.head}")
-            tip = sum(svc.store.pod_nbytes(d)
-                      for d in dag.pod_digests_of(ctx.head))
-            if not written[k][-1] < tip / 4:
-                raise AssertionError(f"{mode}: s{k}'s last snapshot wrote "
-                                     f"{written[k][-1]} bytes of a "
+            pods = [set(dag.pod_digests_of(s["time_id"]))
+                    for s in snaps[k::n]]
+            delta.append([sum(svc.store.pod_nbytes(d) for d in p - q)
+                          for p, q in zip(pods, [set()] + pods)])
+            tip = sum(svc.store.pod_nbytes(d) for d in pods[-1])
+            if not delta[k][-1] < tip / 4:
+                raise AssertionError(f"{mode}: s{k}'s last snapshot added "
+                                     f"{delta[k][-1]} bytes of pods to a "
                                      f"{tip}-byte tip")
-        if not written[0][-1] < written[0][0] / 4:
-            raise AssertionError(f"{mode}: s0's last snapshot wrote "
-                                 f"{written[0][-1]} bytes, its first "
-                                 f"{written[0][0]}")
+        if not delta[0][-1] < delta[0][0] / 4:
+            raise AssertionError(f"{mode}: s0's last snapshot added "
+                                 f"{delta[0][-1]} bytes of pods, its first "
+                                 f"{delta[0][0]}")
         if not fleet["dedup_ratio"] > 1:
             raise AssertionError(f"{mode}: dedup ratio {fleet['dedup_ratio']}")
         if not res["evict_stats"].bytes_reclaimed > 0:
@@ -1620,8 +1783,8 @@ def phase_serve(device) -> dict:
         fetches = collections.Counter(
             s["n_digest_syncs"] + s["n_gather_syncs"] for s in snaps)
         steps = n * (8 + SERVE["gen_tokens"])
-        log(f"[serve] {mode}: {steps} decode steps and {len(snaps)} "
-            f"snapshots in {res['wall']:.3f} s ({res['wall'] / steps * 1e3:.3f}"
+        log(f"[serve] {mode}: {steps} decode steps (one CUDA graph per "
+            f"session) and {len(snaps)} snapshots in {res['wall']:.3f} s ({res['wall'] / steps * 1e3:.3f}"
             f" ms per step, saves included); save stall p50 "
             f"{fleet['p50_save_stall_s'] * 1e3:.3f} ms, p99 "
             f"{fleet['p99_save_stall_s'] * 1e3:.3f} ms; dedup "
@@ -1630,8 +1793,10 @@ def phase_serve(device) -> dict:
             f"evict {fleet['p50_evict_s'] * 1e3:.3f} ms reclaiming "
             f"{res['evict_stats'].bytes_reclaimed} bytes; peak device "
             f"memory {peak / 1e9:.3f} GB; kernel launches {launches}")
-        log(f"[serve] {mode}: bytes written per snapshot, by session: "
-            f"{written}; fetches per save body: {dict(fetches)}")
+        log(f"[serve] {mode}: bytes written per snapshot (the store's "
+            f"growth over its body), by session: {written}; bytes of the "
+            f"pods each snapshot added to its session's previous commit: "
+            f"{delta}; fetches per save body: {dict(fetches)}")
         log(f"[serve] {mode}: stalls per save (ms): "
             f"{[round(t * 1e3, 3) for t in svc.save_stalls]}")
         stats, stalls = zip(*warm)
@@ -1661,7 +1826,8 @@ def phase_sessions(gen, device) -> dict:
     from repro_torch.core import LGA, MemoryStore
     from repro_torch.models.model import api, init_model_params
     from repro_torch.sessions import SessionService
-    from repro_torch.train.serve_step import make_decode_step
+    from repro_torch.train.serve_step import (compile_decode_step,
+                                              make_decode_step)
     cfg = get_config("qwen1.5-0.5b")
     m = api(cfg)
     params = init_model_params(cfg, gen, device=device)
@@ -1671,7 +1837,8 @@ def phase_sessions(gen, device) -> dict:
     svc_kw = dict(policy=LGA(), chunk_bytes=SERVE_CHUNK_BYTES, device=device)
     out = {}
 
-    # one decode step with host syncs turned into errors, then its time
+    # one decode step with host syncs turned into errors, then the
+    # compiled step against it
     cache = m.init_cache(cfg, B, T, device=device)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
     logits, cache = step(params, cache, tok)
@@ -1683,18 +1850,11 @@ def phase_sessions(gen, device) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
-    def decode():
-        nonlocal logits, cache
-        logits, cache = step(params, cache, tok)
-
-    out["decode_ms"] = [cuda_ms(decode, 20) for _ in range(3)]
     log(f"[sessions] a full-width decode step (B={B}, {T} cache slots) "
-        f"made no host sync under set_sync_debug_mode('error'); "
-        f"{out['decode_ms']} ms per step by CUDA events (3 runs of 20)")
-    busy, wall, n_ops = profile_device(decode, 5)
-    log(f"[trace] decode step under the profiler: device busy "
-        f"{busy:.3f} ms of {wall:.3f} ms wall per step "
-        f"({100 * busy / wall:.1f}%), {n_ops:.0f} device ops per step")
+        f"made no host sync under set_sync_debug_mode('error')")
+    out["graph"] = graph_against_eager(
+        "qwen1.5-0.5b", cfg, params,
+        lambda: m.init_cache(cfg, B, T, device=device), gen, device)
     del cache, logits
 
     rng = np.random.default_rng(0)
@@ -1708,6 +1868,8 @@ def phase_sessions(gen, device) -> dict:
         svc = SessionService(MemoryStore(), pool_size=n,
                              async_mode=async_mode, **svc_kw)
         caches = [m.init_cache(cfg, B, T, device=device) for _ in range(n)]
+        steps = [compile_decode_step(cfg, params, c, device=device)
+                 for c in caches]
         toks = [None] * n
         clones, per_save = {}, []
         caller = threading.get_ident()
@@ -1717,7 +1879,7 @@ def phase_sessions(gen, device) -> dict:
             for i in range(n_tokens):
                 for k in range(n):
                     tok = prompts[k][:, i:i + 1] if i < 8 else toks[k]
-                    logits, caches[k] = step(params, caches[k], tok)
+                    logits, caches[k] = steps[k](tok)
                     toks[k] = torch.argmax(logits, dim=-1, keepdim=True)\
                         .to(torch.int32)
                     if (i + 1) % SERVE["save_every"]:
@@ -1806,7 +1968,10 @@ def phase_sessions(gen, device) -> dict:
     t_resume = time.perf_counter() - t0
     bit_equal(state, clones[tip])
     cs = other.sessions["s1"].last_checkout_stats
-    logits, state["cache"] = step(params, state["cache"], toks[1])
+    # the restored tensors are new: a new graph over them
+    resumed = compile_decode_step(cfg, params, state["cache"], device=device)
+    bit_equal(resumed.cache, clones[tip]["cache"])
+    logits, state["cache"] = resumed(toks[1])
     state["cursor"]["pos"] += 1
     want = snapshot(state)
     with FetchesByThread() as fetches:
@@ -1819,8 +1984,8 @@ def phase_sessions(gen, device) -> dict:
     bit_equal(other.pool[0].load(time_id=tid), want)
     log(f"[sessions] resume_session('s1') on a second service: tip {tip} "
         f"bit-exact in {t_resume:.3f} s ({cs.n_pods_fetched} of "
-        f"{cs.n_pods} pods read, {cs.read_bytes} bytes); the next save "
-        f"made {n_f} fetch(es), reused {s['n_pods_reused']} pods, wrote "
+        f"{cs.n_pods} pods read, {cs.read_bytes} bytes), a graph "
+        f"captured over it; the next save made {n_f} fetch(es), reused {s['n_pods_reused']} pods, wrote "
         f"{s['pods_written']} and loads back bit-exact")
     for svc, *_ in stores.values():
         svc.close()
@@ -2352,8 +2517,10 @@ def manifest_digests(store, tid: int) -> dict:
 
 
 def family_sessions(arch: str, gen, device) -> dict:
-    """11b: `FAMILY_SERVE`'s traffic at full depth through
-    `SessionService`, `make_decode_step` and `init_model_params`: every
+    """11b: the compiled step against the eager one
+    (`graph_against_eager`), then `FAMILY_SERVE`'s traffic at full depth
+    through `SessionService`, `compile_decode_step` (one graph per
+    session) and `init_model_params`: every
     commit loads back bit-exact, every fetch is counted (<= 2 per save
     body, none in a decode step), a recurrent family's second save
     dirties every chunk of its SSM or LRU states, Whisper's second
@@ -2366,7 +2533,8 @@ def family_sessions(arch: str, gen, device) -> dict:
     from repro_torch.models import whisper
     from repro_torch.models.model import api, init_model_params
     from repro_torch.sessions import SessionService
-    from repro_torch.train.serve_step import make_decode_step
+    from repro_torch.train.serve_step import (compile_decode_step,
+                                              make_decode_step)
     cfg = get_config(arch)
     m = api(cfg)
     params = init_model_params(cfg, gen, device=device)
@@ -2383,7 +2551,8 @@ def family_sessions(arch: str, gen, device) -> dict:
             cache["cross"] = whisper.build_cross_cache(params, enc, cfg)
         return cache
 
-    # one decode step with host syncs turned into errors, then its time
+    # one decode step with host syncs turned into errors, then the
+    # compiled step against it
     cache = new_cache(np.random.default_rng(1))
     tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
     logits, cache = step(params, cache, tok)
@@ -2395,13 +2564,10 @@ def family_sessions(arch: str, gen, device) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
-    def decode():
-        nonlocal logits, cache
-        logits, cache = step(params, cache, tok)
-
-    decode_ms = [cuda_ms(decode, 10) for _ in range(2)]
-    busy, wall, n_ops = profile_device(decode, 3)
     del cache, logits
+    graph = graph_against_eager(arch, cfg, params,
+                                lambda: new_cache(np.random.default_rng(1)),
+                                gen, device)
 
     # the sessions: prompts and frames drawn as `serve` draws them
     rng = np.random.default_rng(0)
@@ -2416,6 +2582,8 @@ def family_sessions(arch: str, gen, device) -> dict:
                          chunk_bytes=SERVE_CHUNK_BYTES, device=device)
     for k in range(n):
         svc.open_session(f"s{k}")
+    steps = [compile_decode_step(cfg, params, c, device=device)
+             for c in caches]
     toks = [None] * n
     clones, per_save, step_fetches = {}, [], 0
     caller = threading.get_ident()
@@ -2427,7 +2595,7 @@ def family_sessions(arch: str, gen, device) -> dict:
             for k in range(n):
                 tk = prompts[k][:, i:i + 1] if i < 8 else toks[k]
                 f0 = fetches.counts[caller]
-                logits, caches[k] = step(params, caches[k], tk)
+                logits, caches[k] = steps[k](tk)
                 toks[k] = torch.argmax(logits, dim=-1, keepdim=True)\
                     .to(torch.int32)
                 step_fetches += fetches.counts[caller] - f0
@@ -2500,12 +2668,9 @@ def family_sessions(arch: str, gen, device) -> dict:
             if cfg.ssm or cfg.rglru else
             "every cross-K/V chunk clean and no cross pod rewritten in each "
             "second save" if cfg.encoder else "")
-    log(f"[families] 11b {arch}: decode {decode_ms} ms per step by CUDA "
-        f"events (B={B}, 2 runs of 10), no host sync; profiled, the card "
-        f"busy {busy:.3f} ms of {wall:.3f} ms wall per step "
-        f"({100 * busy / wall:.1f}%), {n_ops:.0f} device ops per step")
     log(f"[families] 11b {arch}: {len(per_save)} saves, fetches per save "
-        f"{[f for _, _, f in per_save]}, 0 in {n * n_tokens} decode steps; "
+        f"{[f for _, _, f in per_save]}, 0 in {n * n_tokens} graphed "
+        f"decode steps; "
         f"all {len(clones)} commits load back bit-exact ({t_load:.3f} s)"
         + (f"; {what} ({checked} chunks checked)" if what else "")
         + f"; save stall p50 {fleet['p50_save_stall_s'] * 1e3:.3f} ms, "
@@ -2526,7 +2691,7 @@ def family_sessions(arch: str, gen, device) -> dict:
         del items
     del svc, params, caches, clones, state, store
     torch.cuda.empty_cache()
-    return dict(launches=launches, err=err, decode_ms=decode_ms,
+    return dict(launches=launches, err=err, graph=graph,
                 fleet=fleet, peak=peak, stages=stages,
                 bytes=[s["bytes_written"] for s in ordered])
 
@@ -2540,10 +2705,15 @@ def family_serve(arch: str, device) -> int:
     kw = dict(FAMILY_SERVE)
     torch.cuda.synchronize()
     fp.reset_launch_counts()
-    res = serve(arch, reduced=False, device="cuda", log=False, **kw)
+    with GraphsBuilt() as built:
+        res = serve(arch, reduced=False, device="cuda", log=False, **kw)
     torch.cuda.synchronize()
     launches = fp.launches["fingerprint_cmp"]
-    n_snaps = kw["n_sessions"] * (8 + kw["gen_tokens"]) // kw["save_every"]
+    if len(built.graphs) != kw["n_sessions"]:
+        raise AssertionError(f"{arch} serve: {len(built.graphs)} CUDA "
+                             f"graphs for {kw['n_sessions']} sessions")
+    steps = kw["n_sessions"] * (8 + kw["gen_tokens"])
+    n_snaps = steps // kw["save_every"]
     if len(res["snap_stats"]) != n_snaps:
         raise AssertionError(f"{arch} serve: {len(res['snap_stats'])} "
                              f"snapshots, want {n_snaps}")
@@ -2551,8 +2721,10 @@ def family_serve(arch: str, device) -> int:
         raise AssertionError(f"{arch} serve: no K1 launch")
     if not res["evict_stats"].bytes_reclaimed > 0:
         raise AssertionError(f"{arch} serve: eviction reclaimed nothing")
-    log(f"[families] 11c {arch}: serve(reduced=False) made {n_snaps} "
-        f"snapshots in {res['wall']:.3f} s, K1 launches {launches}, "
+    log(f"[families] 11c {arch}: serve(reduced=False), one CUDA graph "
+        f"per session, made {n_snaps} snapshots in {res['wall']:.3f} s "
+        f"({res['wall'] / steps * 1e3:.3f} ms per step, saves "
+        f"included), K1 launches {launches}, "
         f"eviction reclaimed {res['evict_stats'].bytes_reclaimed} bytes, "
         f"dedup {res['fleet']['dedup_ratio']:.4f}x")
     res["service"].close()
@@ -2871,16 +3043,18 @@ def main(argv=None) -> int:
     main_shapes = bucket_shapes(cfg, chunk_bytes)
     serve_shapes = serving_bucket_shapes()
     small = dict(cfg, layers=2)
+    shallow = dict(cfg, layers=min(cfg["layers"], ASYNC_LAYERS))
     sweep = [(1, 1, 0), (3, 4096, 0), (2, 5000, 0), (7, 1, 0), (64, 128, 0),
              (64, 4096, 0), (1, 1 << 20, 0), (64, 1 << 20, 0), (1, 3, 0),
              (2, 5, 0), (3, 4099, 0), (3, 1 << 20, 0), (149, 1 << 20, 0),
              (70000, 128, 0), (1, 1 << 20, 1), (3, 4096, 2), (5, 1 << 16, 3),
              (9, 4099, 3), (2, 7, 1), (1, 2, 1)]
-    # every bucket shape a path gives the kernels: the 24-layer main,
-    # async and checkout phases', the 2-layer phases' and serving's
+    # every bucket shape a path gives the kernels: the 24-layer main
+    # path's, the 4-layer async and checkout phases', the 2-layer phases'
+    # and serving's
     shapes = list(sweep)
-    for C, W in (main_shapes + bucket_shapes(small, chunk_bytes)
-                 + serve_shapes):
+    for C, W in (main_shapes + bucket_shapes(shallow, chunk_bytes)
+                 + bucket_shapes(small, chunk_bytes) + serve_shapes):
         if (C, W, 0) not in shapes:
             shapes.append((C, W, 0))
     err = timed("phase 1 (kernels)", phase_kernels, shapes, gen, device)
@@ -2893,14 +3067,27 @@ def main(argv=None) -> int:
     main = timed("phase 2", phase_main, cfg, gen, device)
     rung_launches, k2 = timed("phase 3", phase_rungs, small, gen, device)
     timed("phase 4", phase_filestore, small, gen, device)
-    timed("phase 5", phase_async, cfg, gen, device)
-    timed("phase 6", phase_checkout, cfg, gen, device)
+    timed("phase 5", phase_async, shallow, gen, device)
+    timed("phase 6", phase_checkout, shallow, gen, device)
     timed("phase 7", phase_store_features, small, gen, device)
     served = timed("phase 9a", phase_serve, device)
-    timed("phase 9b", phase_sessions, gen, device)
+    sessions = timed("phase 9b", phase_sessions, gen, device)
     trained = timed("phase 10", phase_train, gen, device,
                     smi.stdout.strip().splitlines()[device.index])
     families = timed("phase 11", phase_families, gen, device, k1_by_path)
+    graphs = {"qwen1.5-0.5b": sessions["graph"]}
+    graphs.update((a, r["sessions"]["graph"])
+                  for a, r in families["by_arch"].items())
+    log("[numbers] decode ms per step by CUDA events, eager -> graphed, "
+        "the card's busy ms per graphed step (torch.profiler) and its "
+        "share of the graphed event time: " + json.dumps({
+            a: [min(r["eager_ms"]), min(r["graph_ms"]), r["graph_prof"][0],
+                round(100 * r["graph_prof"][0] / min(r["graph_ms"]), 1),
+                "bit-equal" if r["bitwise"] else
+                f"max abs {r['err']}"] for a, r in graphs.items()})
+        + "; serve ms per step, saves included (phase 9a): " + json.dumps(
+            {mode: r["wall"] / r["steps"] * 1e3
+             for mode, r in served.items()}))
     fp.reset_launch_counts()
     meshed = timed("phase 12", phase_mesh, trained.pop("commit"), gen,
                    device)

@@ -37,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -68,10 +69,21 @@ def _nvcc() -> str:
     return os.path.join(home or "/usr/local/cuda", "bin", "nvcc")
 
 
+#: one build at a time in this process: async save bodies on several
+#: threads may make the first launch at once (processes are kept apart
+#: by the temporary file's name and the atomic rename)
+_BUILD_LOCK = threading.Lock()
+
+
 def build_library() -> Tuple[Path, str]:
     """Compile `csrc/fingerprint.cu` unless this source's library exists.
     Returns (library path, the compiler's output — ptxas register and
     shared-memory report — or "" when the library was already built)."""
+    with _BUILD_LOCK:
+        return _build_library()
+
+
+def _build_library() -> Tuple[Path, str]:
     src = _SOURCE.read_bytes()
     lib = _BUILD_DIR / f"libfingerprint-{hashlib.sha256(src).hexdigest()[:16]}.so"
     if lib.exists():

@@ -21,10 +21,14 @@ every later snapshot O(tokens since last snapshot).  At the end an idle
 session is evicted to exercise the O(delta) refcount reclaim.
 
 Everything runs on ``device`` (``"cuda"`` by default; it raises without
-a card).  Decode updates the caches and states in place; a sync save digests
-them before the next step writes, and an async save snapshots them on
-the current stream first.  Generated tokens stay on the device and come
-to the host once, at the end.
+a card).  Each session decodes through its own compiled step
+(`train.serve_step.compile_decode_step`, where the reference jits the
+step): on a card one CUDA graph per session, captured once its cache is
+built, replayed at every token; a failed capture raises.  Decode updates
+the caches and states in place; a sync save digests them before the
+next step writes, and an async save snapshots them on the current
+stream, which the next replay follows.  Generated tokens stay on the
+device and come to the host once, at the end.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from ..core import LGA, FileStore, MemoryStore
 from ..models import whisper
 from ..models.model import api, init_model_params
 from ..sessions import SessionService
-from ..train.serve_step import make_decode_step
+from ..train.serve_step import compile_decode_step
 
 
 def _make_store(store: str, store_dir: Optional[str]):
@@ -82,7 +86,6 @@ def serve(arch: str, *, n_requests: int = 4, gen_tokens: int = 32,
     device = svc.pool[0].device
     params = init_model_params(
         cfg, torch.Generator(device=device).manual_seed(0), device=device)
-    step = make_decode_step(cfg)
 
     rng = np.random.default_rng(0)
     # all sessions share the first 7 prompt tokens (the fleet's common
@@ -108,6 +111,10 @@ def serve(arch: str, *, n_requests: int = 4, gen_tokens: int = 32,
                 .to(torch.bfloat16)
             enc = whisper.encode(params, frames.to(device), cfg)
             sess.cache["cross"] = whisper.build_cross_cache(params, enc, cfg)
+        # each session its own graph and logits buffer: the round-robin
+        # below keeps every session's logits until its next step
+        sess.step = compile_decode_step(cfg, params, sess.cache,
+                                        device=device)
         sess.logits = None
         sess.generated = []
         sessions.append(sess)
@@ -122,7 +129,7 @@ def serve(arch: str, *, n_requests: int = 4, gen_tokens: int = 32,
                 tok = torch.argmax(sess.logits, dim=-1, keepdim=True)\
                     .to(torch.int32)
                 sess.generated.append(tok)
-            sess.logits, sess.cache = step(params, sess.cache, tok)
+            sess.logits, sess.cache = sess.step(tok)
             if (i + 1) % save_every == 0:
                 tid = svc.save_session(f"s{s}", {"cache": sess.cache,
                                                  "cursor": {"pos": i + 1}})

@@ -327,3 +327,30 @@ def test_kernels_match_plain_versions_on_card(cuda, C, W):
     assert torch.equal(d, pd) and torch.equal(m, pm)
     assert (u32(plain.cpu()) == rref.fingerprint_words_np(words, lens,
                                                           seed=7)).all()
+
+
+def test_build_library_compiles_once_across_threads(monkeypatch, tmp_path):
+    """Async save bodies on several threads may make the first launch at
+    once: one compile, and every caller gets the library (before, each
+    thread compiled into one temporary file and all but the first rename
+    failed)."""
+    import subprocess
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    calls = []
+
+    def fake_nvcc(cmd, **kw):
+        calls.append(cmd)
+        time.sleep(0.2)
+        with open(cmd[cmd.index("-o") + 1], "wb") as f:
+            f.write(b"library")
+        return subprocess.CompletedProcess(cmd, 0, "ptxas report", "")
+
+    monkeypatch.setattr(tfp, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tfp.subprocess, "run", fake_nvcc)
+    with ThreadPoolExecutor(8) as ex:
+        out = list(ex.map(lambda _: tfp.build_library(), range(8)))
+    assert len(calls) == 1
+    assert len({lib for lib, _ in out}) == 1
+    assert out[0][0].read_bytes() == b"library"
+    assert sorted(report for _, report in out) == [""] * 7 + ["ptxas report"]
