@@ -12,7 +12,7 @@ Phases (each raises on failure; the script then exits non-zero):
      bit-exact, on a sweep of packed (C, W) matrices (W % 4 != 0,
      all-0xFFFFFFFF words, and views whose rows start 4, 8 or 12 bytes past
      a 16-byte boundary among them) and on every bucket shape the later
-     phases give K2, at 24, 4 and 2 layers, and phase 9's serving buckets
+     phases give K2, at 24 layers and at 2, and phase 9's serving buckets
      (read from the port's planner).  Then K1 reading the leaves in place
      (`fingerprint_leaves_cmp`) against its plain version, bit-exact in
      digests, dirty flags and speculated payload, on the main path's plan
@@ -45,8 +45,7 @@ Phases (each raises on failure; the script then exits non-zero):
      window of its own after a discarded warm-up window, averaged over the
      records kept; a shape with no sound window fails the phase.
   4. A `FileStore` round trip at 2 layers, reopened by a fresh instance.
-  5. Async saves at full width (4 layers, 2.07 GB, to keep the
-     script's time): `Chipmink(async_mode=True)` takes a
+  5. Async saves at full width: `Chipmink(async_mode=True)` takes a
      bootstrap save and 4 sparse rounds, each `save()` followed at once by
      the next round's in-place update (`add_` or `index_copy_` on the
      embedding rows of params, mu and nu) on the current stream, then one
@@ -57,8 +56,7 @@ Phases (each raises on failure; the script then exits non-zero):
      the snapshot's bytes, stalls, peak device memory, and the snapshot
      alone on an idle card (host time, the span of CUDA events around it,
      and the device time of its copies by torch.profiler).
-  6. Checkout at full width (4 layers, as phase 5): save on main,
-     `branch("exp")`, 4 sparse
+  6. Checkout at full width: save on main, `branch("exp")`, 4 sparse
      rounds, two leaves changed in place after the last save,
      `checkout("main")`.  The changed leaves are found (their chunks
      dirty) and restored from the store; every untouched leaf comes back
@@ -78,7 +76,10 @@ Phases (each raises on failure; the script then exits non-zero):
      requests, 32 generated tokens, 128 cache slots and a snapshot every 8
      tokens (2 KiB chunks), once synchronous and once with
      `async_mode=True`: 5 snapshots per session, each session's last
-     snapshot far smaller than its tip, cross-session dedup > 1, the last
+     snapshot far smaller than its tip and than its first (by its
+     `bytes_written` when sync; by the bytes of the pods it added when
+     async, where overlapping bodies each count the others' writes too),
+     cross-session dedup > 1, the last
      session evicted with bytes reclaimed, and one CUDA graph built per
      session (`serve` decodes through `compile_decode_step`); prints ms
      per step and stall times, bytes per snapshot, per-stage times of a
@@ -220,8 +221,6 @@ TRAIN = dict(steps=8, save_every=4, global_batch=8, seq_len=128)
 TRAIN_CHUNK_BYTES = 1 << 18
 #: depth of 10a and 10c (10b trains all 24 layers)
 TRAIN_LAYERS = 4
-#: depth of phases 5 and 6 (phase 2's main path saves all 24 layers)
-ASYNC_LAYERS = 4
 #: phase 11's models, each at its full published configuration
 #: (`src/repro_torch/configs/`): MoE, SSM, hybrid, enc-dec, VLM
 FAMILY_ARCHS = ("granite-moe-3b-a800m", "falcon-mamba-7b",
@@ -1613,6 +1612,19 @@ class GraphsBuilt:
         self.mod.compile_decode_step = self.real
 
 
+def compile_strict(cfg, params, cache, device):
+    """`compile_decode_step` under `set_sync_debug_mode("error")`, so a
+    host sync in the captured step fails the run even where the capture
+    alone would not notice it.  The mode is process-wide: call this only
+    where no save body is in flight."""
+    from repro_torch.train.serve_step import compile_decode_step
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return compile_decode_step(cfg, params, cache, device=device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def graph_against_eager(name: str, cfg, params, make_cache, gen,
                         device) -> dict:
     """One session's compiled step (`compile_decode_step`) against the
@@ -1627,8 +1639,7 @@ def graph_against_eager(name: str, cfg, params, make_cache, gen,
     share and device ops per step under torch.profiler (3 steps each
     way), the capture's seconds and the device memory the graph holds
     (the reserved bytes it adds: its pool and buffers)."""
-    from repro_torch.train.serve_step import (compile_decode_step,
-                                              make_decode_step)
+    from repro_torch.train.serve_step import make_decode_step
     step = make_decode_step(cfg)
     cache = make_cache()
     B = cache["layers"]["0"][next(iter(cache["layers"]["0"]))].shape[0]
@@ -1641,7 +1652,7 @@ def graph_against_eager(name: str, cfg, params, make_cache, gen,
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
-    g = compile_decode_step(cfg, params, cache, device=device)
+    g = compile_strict(cfg, params, cache, device)
     torch.cuda.synchronize()
     t_capture = time.perf_counter() - t0
     held = torch.cuda.memory_reserved(device) - reserved
@@ -1748,9 +1759,12 @@ def phase_serve(device) -> dict:
                    for k in range(n)]
         dag = svc.pool[0].versions
         # each snapshot's own new bytes: the pods its commit holds that the
-        # session's previous commit did not.  (`bytes_written` is the
-        # store's growth over a save body, so in async mode it also counts
-        # what other sessions' bodies wrote meanwhile.)
+        # session's previous commit did not.  `bytes_written` is the
+        # store's growth over a save body, as the reference computes it,
+        # so in async mode, where the sessions' bodies overlap, it also
+        # counts what the other bodies wrote meanwhile (ROADMAP.md §3):
+        # sync mode holds `bytes_written`, async mode the pods' own bytes.
+        own = "bytes of pods added" if async_mode else "bytes written"
         delta = []
         for k in range(n - 1):        # the last session was evicted
             ctx = svc.sessions[f"s{k}"]
@@ -1762,14 +1776,14 @@ def phase_serve(device) -> dict:
             delta.append([sum(svc.store.pod_nbytes(d) for d in p - q)
                           for p, q in zip(pods, [set()] + pods)])
             tip = sum(svc.store.pod_nbytes(d) for d in pods[-1])
-            if not delta[k][-1] < tip / 4:
-                raise AssertionError(f"{mode}: s{k}'s last snapshot added "
-                                     f"{delta[k][-1]} bytes of pods to a "
-                                     f"{tip}-byte tip")
-        if not delta[0][-1] < delta[0][0] / 4:
-            raise AssertionError(f"{mode}: s0's last snapshot added "
-                                 f"{delta[0][-1]} bytes of pods, its first "
-                                 f"{delta[0][0]}")
+            last = (delta if async_mode else written)[k][-1]
+            if not last < tip / 4:
+                raise AssertionError(f"{mode}: s{k}'s last snapshot: {last} "
+                                     f"{own}, a {tip}-byte tip")
+        first, *_, last = (delta if async_mode else written)[0]
+        if not last < first / 4:
+            raise AssertionError(f"{mode}: s0's last snapshot: {last} {own}, "
+                                 f"its first {first}")
         if not fleet["dedup_ratio"] > 1:
             raise AssertionError(f"{mode}: dedup ratio {fleet['dedup_ratio']}")
         if not res["evict_stats"].bytes_reclaimed > 0:
@@ -1826,8 +1840,7 @@ def phase_sessions(gen, device) -> dict:
     from repro_torch.core import LGA, MemoryStore
     from repro_torch.models.model import api, init_model_params
     from repro_torch.sessions import SessionService
-    from repro_torch.train.serve_step import (compile_decode_step,
-                                              make_decode_step)
+    from repro_torch.train.serve_step import make_decode_step
     cfg = get_config("qwen1.5-0.5b")
     m = api(cfg)
     params = init_model_params(cfg, gen, device=device)
@@ -1868,7 +1881,7 @@ def phase_sessions(gen, device) -> dict:
         svc = SessionService(MemoryStore(), pool_size=n,
                              async_mode=async_mode, **svc_kw)
         caches = [m.init_cache(cfg, B, T, device=device) for _ in range(n)]
-        steps = [compile_decode_step(cfg, params, c, device=device)
+        steps = [compile_strict(cfg, params, c, device)
                  for c in caches]
         toks = [None] * n
         clones, per_save = {}, []
@@ -1969,7 +1982,7 @@ def phase_sessions(gen, device) -> dict:
     bit_equal(state, clones[tip])
     cs = other.sessions["s1"].last_checkout_stats
     # the restored tensors are new: a new graph over them
-    resumed = compile_decode_step(cfg, params, state["cache"], device=device)
+    resumed = compile_strict(cfg, params, state["cache"], device)
     bit_equal(resumed.cache, clones[tip]["cache"])
     logits, state["cache"] = resumed(toks[1])
     state["cursor"]["pos"] += 1
@@ -2533,8 +2546,7 @@ def family_sessions(arch: str, gen, device) -> dict:
     from repro_torch.models import whisper
     from repro_torch.models.model import api, init_model_params
     from repro_torch.sessions import SessionService
-    from repro_torch.train.serve_step import (compile_decode_step,
-                                              make_decode_step)
+    from repro_torch.train.serve_step import make_decode_step
     cfg = get_config(arch)
     m = api(cfg)
     params = init_model_params(cfg, gen, device=device)
@@ -2582,7 +2594,7 @@ def family_sessions(arch: str, gen, device) -> dict:
                          chunk_bytes=SERVE_CHUNK_BYTES, device=device)
     for k in range(n):
         svc.open_session(f"s{k}")
-    steps = [compile_decode_step(cfg, params, c, device=device)
+    steps = [compile_strict(cfg, params, c, device)
              for c in caches]
     toks = [None] * n
     clones, per_save, step_fetches = {}, [], 0
@@ -3043,18 +3055,16 @@ def main(argv=None) -> int:
     main_shapes = bucket_shapes(cfg, chunk_bytes)
     serve_shapes = serving_bucket_shapes()
     small = dict(cfg, layers=2)
-    shallow = dict(cfg, layers=min(cfg["layers"], ASYNC_LAYERS))
     sweep = [(1, 1, 0), (3, 4096, 0), (2, 5000, 0), (7, 1, 0), (64, 128, 0),
              (64, 4096, 0), (1, 1 << 20, 0), (64, 1 << 20, 0), (1, 3, 0),
              (2, 5, 0), (3, 4099, 0), (3, 1 << 20, 0), (149, 1 << 20, 0),
              (70000, 128, 0), (1, 1 << 20, 1), (3, 4096, 2), (5, 1 << 16, 3),
              (9, 4099, 3), (2, 7, 1), (1, 2, 1)]
-    # every bucket shape a path gives the kernels: the 24-layer main
-    # path's, the 4-layer async and checkout phases', the 2-layer phases'
-    # and serving's
+    # every bucket shape a path gives the kernels: the 24-layer main,
+    # async and checkout phases', the 2-layer phases' and serving's
     shapes = list(sweep)
-    for C, W in (main_shapes + bucket_shapes(shallow, chunk_bytes)
-                 + bucket_shapes(small, chunk_bytes) + serve_shapes):
+    for C, W in (main_shapes + bucket_shapes(small, chunk_bytes)
+                 + serve_shapes):
         if (C, W, 0) not in shapes:
             shapes.append((C, W, 0))
     err = timed("phase 1 (kernels)", phase_kernels, shapes, gen, device)
@@ -3067,8 +3077,8 @@ def main(argv=None) -> int:
     main = timed("phase 2", phase_main, cfg, gen, device)
     rung_launches, k2 = timed("phase 3", phase_rungs, small, gen, device)
     timed("phase 4", phase_filestore, small, gen, device)
-    timed("phase 5", phase_async, shallow, gen, device)
-    timed("phase 6", phase_checkout, shallow, gen, device)
+    timed("phase 5", phase_async, cfg, gen, device)
+    timed("phase 6", phase_checkout, cfg, gen, device)
     timed("phase 7", phase_store_features, small, gen, device)
     served = timed("phase 9a", phase_serve, device)
     sessions = timed("phase 9b", phase_sessions, gen, device)

@@ -19,10 +19,12 @@ reference run op by op, not against the jitted one: over 12 steps of the
 reduced configs 99.22-100% of each tensor's elements stay within it and
 up to 8 of a step's 1,024 logits pass it.  So logits and every cache leaf
 are held to ``TOL_ALL`` (absolute and relative 4e-2, the bound `chip_
-smoke.py` phase 11a holds every element of the card's tensors to); the
-share rule that goes with it there (99.9% within ``TOL``) is for
-full-width tensors, where a thousandth is many elements, and is applied
-to the card test below.  The chain to the op-by-op reference is closed by
+smoke.py` phase 11a holds every element of the card's tensors to) and at
+least ``TOL_SHARE`` (99%) of each tensor's elements to ``TOL``: at most
+10 of a step's 1,024 logits outside it.  (Phase 11a's share, 99.9%, is
+for full-width tensors, where a thousandth is many elements; the card
+test in `test_torch_decode_graph_card.py` applies it.)  The chain to the
+op-by-op reference is closed by
 `test_decode_graph_equals_the_eager_step_bit_for_bit` (the graph's body
 against the eager step, equal bits) and the model tests (the eager step
 against the reference, ``TOL``).  Session stores are compared bit for
@@ -66,10 +68,10 @@ from test_torch_whisper import frames
 #: phases 9 and 11 serve at full width
 SERVED = ("qwen1.5-0.5b", "granite-moe-3b-a800m", "falcon-mamba-7b",
           "recurrentgemma-9b", "whisper-base", "qwen2-vl-2b")
-#: every element within it (and, on the card, a share of at least
-#: TOL_SHARE within TOL; see the module docstring)
+#: every element within TOL_ALL and a share of at least TOL_SHARE
+#: within TOL (see the module docstring)
 TOL_ALL = dict(rtol=4e-2, atol=4e-2)
-TOL_SHARE = 0.999
+TOL_SHARE = 0.99
 B, T, STEPS = 2, 8, 12
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -126,13 +128,11 @@ def test_decode_graph_matches_the_jitted_reference(arch_id):
         assert got["pos"] is pos and int(pos) == int(rcache["pos"]) == i + 1
         assert got.get("cross") is cross
         assert plog.dtype == torch.bfloat16 and plog.shape == (B, cfg.vocab)
-        np.testing.assert_allclose(f32(plog), f32(rlog), **TOL_ALL,
-                                   err_msg=what + " logits")
+        assert_near(plog, rlog, what + " logits")
         assert sorted(leaves(got)) == sorted(leaves(rcache))
         for key, want in leaves(rcache).items():
             assert leaves(got)[key] is first[key], key
-            np.testing.assert_allclose(f32(first[key]), f32(want), **TOL_ALL,
-                                       err_msg=f"{what} {key}")
+            assert_near(first[key], want, f"{what} {key}")
 
 
 @pytest.mark.parametrize("arch_id", SERVED)

@@ -75,7 +75,12 @@ def test_capture_leaves_the_cache_and_replays_the_eager_step(cuda, arch_id):
             params, whisper.encode(params, frames.to(cuda), cfg), cfg)
     copies = [tree_map(torch.clone, cache) for _ in range(2)]
     before = tree_map(torch.clone, cache)
-    step = serve_step.compile_decode_step(cfg, params, cache, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")    # no host sync in the step
+    try:
+        step = serve_step.compile_decode_step(cfg, params, cache,
+                                              device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert step.graph is not None
     assert torch.equal(step.cache["pos"], before["pos"])
