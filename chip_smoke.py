@@ -106,27 +106,49 @@ Phases (each raises on failure; the script then exits non-zero):
      keep the script's time; 10b at 24 layers, 4.64 GB), through the entry
      point
      `repro_torch.launch.train.train(..., reduced=False, device="cuda")`,
-     each step timed by CUDA events, each `save()` call timed (an async
-     one under `set_sync_debug_mode("error")`) and every fetch counted per
+     which steps through the compiled step (`compile_train_step`: one
+     CUDA graph per `train` call, checked to hold one, its capture
+     seconds and the device memory it holds printed), each replay timed
+     by CUDA events, each `save()` call timed (an async one under
+     `set_sync_debug_mode("error")`) and every fetch counted per
      thread.  (a) 8 steps, a save every 4, async: losses finite, the
      last commit loads back bit-exact, 0 fetches in the caller and <= 2
      per save body; then K1 on the training plan (the final state's real
      leaves) bit-exact against its plain version and timed against its
      bound, with its wrapper's host time; then the step must descend: 8
-     steps at lr 1e-4 on one fixed batch from a fresh init lower the loss
-     (at the trainer's lr of 1e-3, the reference's, the full-width loss
-     rises step after step, in the reference too: `experiments/
-     train_trend.py --layers 12`), and
-     one step runs under torch.profiler (device busy share).  (b) The same
-     with the embedding and layers 0-21 frozen: the static checker's
-     read-only set is exactly the frozen parameters, the second save skips
-     them (active leaves, < 30% of the bootstrap's bytes, K1's real rows
-     down by theirs).  (c) 4 steps with a sync save, a load of the newest
-     commit, the state rebuilt on the card and the cursor restored, 4
+     eager steps at lr 1e-4 on one fixed batch from a fresh init lower
+     the loss (at the trainer's lr of 1e-3, the reference's, the
+     full-width loss rises step after step, in the reference too:
+     `experiments/train_trend.py --layers 12`), and one step runs under
+     torch.profiler (device busy share).  (b) The same with the embedding
+     and layers 0-21 frozen: the static checker's read-only set is
+     exactly the frozen parameters, the second save skips them (active
+     leaves, < 30% of the bootstrap's bytes, K1's real rows down by
+     theirs), and the graph never wrote them (the same tensors,
+     addresses and bits after 8 replays).  (c) 4 steps with a sync save,
+     a load of the newest commit, the state rebuilt on the card, the
+     cursor restored and a new graph compiled over the rebuilt state, 4
      more: losses within rtol=atol=1e-4 of (a)'s 8.  (d) At 2 layers,
      `TrainingSupervisor` (a save every 3, async) over 8 steps with a
-     failure injected at step 5 resumes from the step-3 commit and ends at
-     step 8.
+     failure injected at step 5 resumes from the step-3 commit, compiles
+     a new graph over the restored state and ends at step 8.  (e) and
+     (f) run after (a), before (b)'s commit is kept for phase 12.  (e) The
+     24-layer step graphed against eager (`train_graph_against_eager`),
+     from one fresh state on 3 equal batches, the runs taking turns on
+     the card: the capture (under `set_sync_debug_mode("error")`, as are
+     the replays) changes no bit of the state, and after each replay
+     params, opt, step and every metric are bit-equal to the eager
+     step's where two eager runs are bit-equal to each other, else no
+     further from it than twice their own spread; ms per step by CUDA
+     events (5 each way), the card's busy ms and ops per step under
+     torch.profiler (1 eager, 2 graphed), capture seconds and the device
+     memory the graph holds; then the same, once, with remat at 4
+     layers.  (f)
+     The same check over 3 steps for the other families the trainer
+     takes, each at its full published width, one at a time:
+     granite-moe-3b-a800m (2 layers; `expert_counts` among the metrics),
+     falcon-mamba-7b (2) and recurrentgemma-9b (3, 16.4 GB of train
+     state).
  11. The other model families, each at its full published configuration
      and one on the card at a time: granite-moe-3b-a800m (MoE),
      falcon-mamba-7b (SSM), recurrentgemma-9b (RG-LRU + local attention),
@@ -2018,19 +2040,25 @@ def host_rss_gb() -> float:
 def observe_train(device, layers=None, **kw) -> dict:
     """One `repro_torch.launch.train.train("qwen1.5-0.5b", reduced=False,
     device="cuda", **kw)` run (its depth cut to `layers` if given),
-    instrumented through the names that module calls: each step timed by
-    CUDA events (not the static checker's trace of it), the checker's
-    seconds, every `save()` call's host time (an async one under
-    `set_sync_debug_mode("error")`), K1's row table per launch, fetches
-    per thread, K1 launches, peak device memory."""
+    instrumented through the names that module calls: the compiled step
+    (`compile_train_step`) checked to hold a CUDA graph, its capture
+    seconds and the device memory it holds, each replay timed by CUDA
+    events, the checker's seconds, every `save()` call's host time (an
+    async one under `set_sync_debug_mode("error")`), K1's row table per
+    launch, fetches per thread, K1 launches, peak device memory.  With
+    ``frozen`` in `kw`, the frozen leaves of the state the step was
+    compiled over are kept (the tensor, its address and a copy of its
+    bits) for the caller to check."""
     import dataclasses
     import repro_torch.launch.train as lt
     from repro_torch.kernels import batch as kb
     from repro_torch.kernels import fingerprint as fp
-    real = (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
+    from repro_torch.train.tree import tree_leaves_with_paths
+    real = (lt.Chipmink, lt.compile_train_step, lt.readonly_state_leaves,
             kb.fingerprint_leaves_cmp, lt.get_config)
-    obs = dict(events=[], save_calls=[], k1_rows=[], trace_s=None)
-    tracing = [False]
+    obs = dict(events=[], save_calls=[], k1_rows=[], trace_s=None,
+               frozen0={})
+    frozen = kw.get("frozen", ())
 
     class Observed(real[0]):
         def save(self, state, **kw):
@@ -2043,28 +2071,37 @@ def observe_train(device, layers=None, **kw) -> dict:
                 obs["save_calls"].append(time.perf_counter() - t)
                 torch.cuda.set_sync_debug_mode(0)
 
-    def make_train_step(*args, **kw):
-        step = real[1](*args, **kw)
+    def compile_train_step(step_fn, state, example, **kw):
+        obs["frozen0"] = {
+            p: (t, t.data_ptr(), t.clone())
+            for p, t in tree_leaves_with_paths({"params": state["params"]})
+            if any(p == f or p.startswith(f + "/") for f in frozen)}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t = time.perf_counter()
+        graph = real[1](step_fn, state, example, **kw)
+        torch.cuda.synchronize()
+        obs["capture_s"] = time.perf_counter() - t
+        obs["held"] = torch.cuda.memory_reserved(device) - reserved
+        if graph.graph is None:
+            raise AssertionError("train built a step with no CUDA graph")
 
         def timed(state, batch):
-            if tracing[0]:
-                return step(state, batch)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = step(state, batch)
+            out = graph(state, batch)
             ev[1].record()
             obs["events"].append(ev)
             return out
         return timed
 
     def readonly_state_leaves(*args, **kw):
-        tracing[0] = True
         t = time.perf_counter()
         try:
             return real[2](*args, **kw)
         finally:
-            tracing[0] = False
             obs["trace_s"] = time.perf_counter() - t
 
     def fingerprint_leaves_cmp(leaves, table, *args, **kw):
@@ -2076,9 +2113,9 @@ def observe_train(device, layers=None, **kw) -> dict:
         return cfg if layers is None else dataclasses.replace(
             cfg, n_layers=layers)
 
-    (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
+    (lt.Chipmink, lt.compile_train_step, lt.readonly_state_leaves,
      kb.fingerprint_leaves_cmp, lt.get_config) = (
-        Observed, make_train_step, readonly_state_leaves,
+        Observed, compile_train_step, readonly_state_leaves,
         fingerprint_leaves_cmp, get_config)
     caller = threading.get_ident()
     torch.cuda.synchronize()
@@ -2092,7 +2129,7 @@ def observe_train(device, layers=None, **kw) -> dict:
             torch.cuda.synchronize()
             obs["wall"] = time.perf_counter() - t0
     finally:
-        (lt.Chipmink, lt.make_train_step, lt.readonly_state_leaves,
+        (lt.Chipmink, lt.compile_train_step, lt.readonly_state_leaves,
          kb.fingerprint_leaves_cmp, lt.get_config) = real
     obs.update(out=out, launches=fp.launches["fingerprint_cmp"],
                peak=torch.cuda.max_memory_allocated(device),
@@ -2125,8 +2162,10 @@ def observe_train(device, layers=None, **kw) -> dict:
 def log_train(name: str, obs: dict, card: str) -> None:
     out = obs["out"]
     stats = out["chipmink"].save_stats
-    log(f"[train] {name} ({card}): losses {out['losses']}; step ms by CUDA "
-        f"events {obs['step_ms']}; static checker {obs['trace_s']:.3f} s, "
+    log(f"[train] {name} ({card}): losses {out['losses']}; graphed step "
+        f"ms by CUDA events {obs['step_ms']}; capture {obs['capture_s']:.3f}"
+        f" s, {obs['held']} bytes of device memory held by the graph; "
+        f"static checker {obs['trace_s']:.3f} s, "
         f"{len(out['readonly'])} read-only leaves; {len(stats)} saves, "
         f"save() calls {[round(t * 1e3, 3) for t in obs['save_calls']]} ms; "
         f"fetches: caller {obs['caller_fetches']}, bodies "
@@ -2180,6 +2219,204 @@ def descend(gen, device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+#: 10e, 10f: steps of the compiled train step against the eager one
+TRAIN_GRAPH_STEPS = 3
+#: 10f: the other families the trainer takes (MoE, SSM, hybrid), each at
+#: its full published width, cut in depth as phase 11a cuts them
+TRAIN_FAMILIES = (("granite-moe-3b-a800m", 2), ("falcon-mamba-7b", 2),
+                  ("recurrentgemma-9b", 3))
+#: elements per slice when a leaf is compared with a copy on the host
+COMPARE_ELEMS = 1 << 26
+#: 10e, 10f keep the eager steps' results on the card when all of them
+#: take at most this share of its memory, else on the host
+RECORDS_ON_CARD = 0.25
+
+
+def copy_to(flat: list, where) -> dict:
+    return {p: t.to(where, copy=True) for p, t in flat}
+
+
+def leaf_diff(t: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0 when a device tensor's bytes equal those of its copy (on the
+    card or on the host), else the largest absolute difference of their
+    values (-1.0 for a shape or dtype that differs); compared in slices
+    of `COMPARE_ELEMS`, so a copy on the host needs little device
+    memory."""
+    if t.shape != want.shape or t.dtype != want.dtype:
+        return -1.0
+    a, b, err = t.reshape(-1), want.reshape(-1), 0.0
+    for i in range(0, a.numel(), COMPARE_ELEMS):
+        x, y = a[i:i + COMPARE_ELEMS], b[i:i + COMPARE_ELEMS].to(t.device)
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            err = max(err, float((x.float() - y.float()).abs().max()),
+                      1e-45)
+    return err
+
+
+def train_graph_against_eager(name: str, cfg, device, card: str, *,
+                              steps: int = TRAIN_GRAPH_STEPS,
+                              remat: bool = False) -> dict:
+    """10e, 10f: the compiled train step (`compile_train_step`) against
+    the eager one (`make_train_step`), at `cfg` from a fresh init drawn
+    from a fixed seed, on `steps` equal batches of `TRAIN`'s shape.  The
+    runs take turns on the card, since at full width a graph and an
+    eager run of the larger models do not fit it together: (A) the eager
+    step, every step's state and metrics copied aside (on the card when
+    they take at most `RECORDS_ON_CARD` of it, else on the host); (B) the
+    eager step again, each step against A's, then 5 eager steps timed by
+    CUDA events and 1 under torch.profiler (its many host-side events
+    take the profiler seconds to process); (G) the graph over the same
+    fresh state, captured (seconds, the device memory it holds) and
+    replayed under `set_sync_debug_mode("error")`: the capture changed no
+    bit of the state (parameters as drawn, moments zero, step 0), and
+    after each replay every leaf of params, opt and step and every metric
+    (`expert_counts` among them) is bit-equal to A's where B is bit-equal
+    to A, else no further from A than twice B is, leaf by leaf; then 5
+    replays timed by CUDA events and 2 under the profiler."""
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.model import init_model_params
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (compile_train_step,
+                                              init_train_state,
+                                              make_train_step)
+    from repro_torch.train.tree import tree_leaves_with_paths
+    opt_cfg = OptConfig(lr=1e-3)
+    step = make_train_step(cfg, opt_cfg, remat=remat)
+    pipe = TokenPipeline(cfg.vocab, TRAIN["global_batch"], TRAIN["seq_len"])
+    batches = [batch_on(pipe.next_batch(), device) for _ in range(steps)]
+
+    def fresh():
+        gen = torch.Generator(device=device).manual_seed(1)
+        return init_train_state(
+            cfg, init_model_params(cfg, gen, device=device), opt_cfg)
+
+    def flat(state, metrics) -> list:
+        return tree_leaves_with_paths({"state": state, "metrics": metrics})
+
+    def diffs(state, metrics, want: dict) -> dict:
+        got = flat(state, metrics)
+        if sorted(p for p, _ in got) != sorted(want):
+            raise AssertionError(f"{name}: the state's or the metrics' "
+                                 f"leaves differ from the eager step's")
+        return {p: leaf_diff(t, want[p]) for p, t in got}
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held_before = torch.cuda.memory_allocated(device)
+    state = fresh()
+    state_bytes = sum(t.nbytes for _, t in tree_leaves_with_paths(state))
+    aside = device if steps * state_bytes <= RECORDS_ON_CARD * \
+        torch.cuda.get_device_properties(device).total_memory else "cpu"
+    params0 = copy_to(tree_leaves_with_paths(state["params"]), aside)
+    ref = []
+    for b in batches:
+        state, met = step(state, b)
+        ref.append(copy_to(flat(state, met), aside))
+    del state, met
+    # the largest state fills the card: A's cached blocks, split by its
+    # last step, would not hold B's
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    state, spread = fresh(), []
+    for b, want in zip(batches, ref):
+        state, met = step(state, b)
+        spread.append(diffs(state, met, want))
+    t_b = time.perf_counter()
+    stable = not any(e for d in spread for e in d.values())
+    if any(e < 0 for d in spread for e in d.values()):
+        raise AssertionError(f"{name}: two eager runs differ in shape")
+    out = dict(stable=stable, eager_ms=cuda_ms(lambda: step(state,
+                                                            batches[0]), 5),
+               eager_prof=profile_device(lambda: step(state, batches[0]), 1),
+               peak_eager=torch.cuda.max_memory_allocated(device))
+    del state, met
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+
+    state = fresh()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = compile_train_step(step, state, batches[0], device=device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out.update(capture_s=time.perf_counter() - t0,
+               held=torch.cuda.memory_reserved(device) - reserved)
+    t_timed = t0
+    if g.graph is None:
+        raise AssertionError(f"{name}: no CUDA graph captured")
+    for p, t in tree_leaves_with_paths(state):
+        if p.startswith("params/"):
+            ok = leaf_diff(t, params0[p[len("params/"):]]) == 0.0
+        else:
+            ok = not bool(t.any())
+        if not ok:
+            raise AssertionError(f"{name}: the capture changed {p}")
+    err, first_diff = 0.0, None
+    for i, (b, want) in enumerate(zip(batches, ref)):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, met = g(state, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if got is not state:
+            raise AssertionError(f"{name}: the graph handed back another "
+                                 f"state")
+        for p, e in diffs(state, met, want).items():
+            if e and stable:
+                raise AssertionError(f"{name}: step {i} {p} differs from "
+                                     f"the eager step (max abs {e}), which "
+                                     f"is bit-stable")
+            if e and not 0 <= e <= 2 * spread[i][p]:
+                raise AssertionError(f"{name}: step {i} {p} is {e} from "
+                                     f"the eager step, beyond twice its own "
+                                     f"spread {spread[i][p]}")
+            if e:
+                err, first_diff = max(err, e), first_diff or f"step {i} {p}"
+    t_g = time.perf_counter()
+    out.update(bitwise=not err, err=err,
+               graph_ms=cuda_ms(lambda: g(state, batches[0]), 5),
+               graph_prof=profile_device(lambda: g(state, batches[0]), 2),
+               peak_graph=torch.cuda.max_memory_allocated(device),
+               wall=time.perf_counter() - t_start)
+    verdict = ("bit-equal to the eager step (two eager runs bit-equal)"
+               if out["bitwise"] and stable else
+               "bit-equal to the eager step (two eager runs differ)"
+               if out["bitwise"] else
+               f"within twice the eager step's own spread (max abs {err}, "
+               f"first at {first_diff})")
+    (eb, ew, eo), (gb, gw, go) = out["eager_prof"], out["graph_prof"]
+    log(f"[train-graph] {name} ({card}; {cfg.n_layers} layers, "
+        f"{state_bytes / 1e9:.3f} GB of train state; "
+        f"{held_before / 1e9:.3f} GB held by earlier phases): the capture "
+        f"({out['capture_s']:.3f} s, {out['held']} bytes of device memory "
+        f"held) changed no bit of the state; {steps} graphed steps "
+        f"{verdict}; ms per step by CUDA events (5 steps): eager "
+        f"{out['eager_ms']:.3f}, graphed {out['graph_ms']:.3f}; profiled (1 "
+        f"step eager, 2 graphed), eager: the card busy {eb:.3f} ms of "
+        f"{ew:.3f} ms wall ({100 * eb / ew:.1f}%), {eo:.0f} device ops per step; graphed: "
+        f"{gb:.3f} ms of {gw:.3f} ms ({100 * gb / gw:.1f}%; "
+        f"{100 * gb / out['graph_ms']:.1f}% of the graphed event time), "
+        f"{go:.0f} device ops per step; peak device memory eager "
+        f"{out['peak_eager'] / 1e9:.3f} GB, graphed "
+        f"{out['peak_graph'] / 1e9:.3f} GB; {out['wall']:.1f} s (A "
+        f"{t_a - t_start:.1f}, B {t_b - t_a:.1f}, eager timed "
+        f"{t_timed - t_b:.1f}, G {t_g - t_timed:.1f}, graph timed "
+        f"{out['wall'] - (t_g - t_start):.1f}; the eager results kept on "
+        f"{aside})")
+    del g, state, met, got, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(gen, device, card: str) -> dict:
     """10a-10d: the trainer at full width (see the module docstring,
     phase 10).  Returns K1's launches on the training path and its
@@ -2194,7 +2431,8 @@ def phase_train(gen, device, card: str) -> dict:
     from repro_torch.runtime import TrainingSupervisor
     from repro_torch.train.data import TokenPipeline
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.train_step import (init_train_state,
+    from repro_torch.train.train_step import (compile_train_step,
+                                              init_train_state,
                                               make_train_step)
     from repro_torch.train.tree import tree_leaves_with_paths
     launches = 0
@@ -2225,6 +2463,29 @@ def phase_train(gen, device, card: str) -> dict:
     torch.cuda.empty_cache()
     descend(gen, device, card)
 
+    # -- 10e, 10f: the compiled step against the eager one, before 10b's
+    # commit (and its 4.64 GB snapshot buffer) is kept for phase 12 -----
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              n_layers=TRAIN_LAYERS)
+    graphed = {"qwen1.5-0.5b": train_graph_against_eager(
+        "qwen1.5-0.5b", get_config("qwen1.5-0.5b"), device, card)}
+    train_graph_against_eager(
+        f"qwen1.5-0.5b remat, {TRAIN_LAYERS} layers", cfg, device, card,
+        steps=1, remat=True)
+    for arch, n_layers in TRAIN_FAMILIES:
+        graphed[arch] = train_graph_against_eager(
+            arch, dataclasses.replace(get_config(arch), n_layers=n_layers),
+            device, card)
+    log("[numbers] train ms per step by CUDA events, eager -> graphed, "
+        "the card's busy ms per graphed step (torch.profiler) and its "
+        "share of the graphed event time, capture s, MB a graph holds: "
+        + json.dumps({a: [r["eager_ms"], r["graph_ms"], r["graph_prof"][0],
+                          round(100 * r["graph_prof"][0] / r["graph_ms"], 1),
+                          round(r["capture_s"], 3), round(r["held"] / 1e6, 1),
+                          "bit-equal" if r["bitwise"] else
+                          f"max abs {r['err']}"]
+                      for a, r in graphed.items()}))
+
     # -- 10b: frozen fine-tune ------------------------------------------
     frozen = ("params/embed",) + tuple(f"params/layers/{i}"
                                        for i in range(22))
@@ -2247,6 +2508,14 @@ def phase_train(gen, device, card: str) -> dict:
         raise AssertionError(f"10b: second save wrote "
                              f"{second['bytes_written']} bytes, bootstrap "
                              f"{boot['bytes_written']}")
+    if sorted(b["frozen0"]) != sorted(want_ro):
+        raise AssertionError("10b: the compiled step's frozen leaves are "
+                             "not the frozen parameters")
+    live = dict(params)
+    for p, (t, ptr, bits) in b["frozen0"].items():
+        if not (live[p] is t and t.data_ptr() == ptr
+                and torch.equal(t.view(torch.uint8), bits.view(torch.uint8))):
+            raise AssertionError(f"10b: frozen leaf {p} was written")
     frozen_rows = sum(-(-leaf.numel() * leaf.element_size()
                         // TRAIN_CHUNK_BYTES)
                       for p, leaf in params if p in want_ro)
@@ -2259,7 +2528,9 @@ def phase_train(gen, device, card: str) -> dict:
         f"{second['n_leaves']} leaves active, {second['bytes_written']} "
         f"bytes ({100 * second['bytes_written'] / boot['bytes_written']:.2f}"
         f"% of the bootstrap's {boot['bytes_written']}); K1's real rows "
-        f"{real0} -> {real1} (the frozen leaves hold {frozen_rows})")
+        f"{real0} -> {real1} (the frozen leaves hold {frozen_rows}); the "
+        f"graph never wrote them (same tensors, addresses and bits after 8 "
+        f"replays)")
     # phase 10's last 24-layer commit: its Chipmink and live parameters
     # stay for phase 12c's restore
     commit = dict(ck=out["chipmink"], live=out["state"]["params"])
@@ -2283,17 +2554,23 @@ def phase_train(gen, device, card: str) -> dict:
     first = c["out"]["losses"]
     c["out"]["chipmink"].close()
     del c, loaded
-    step = make_train_step(cfg, OptConfig(lr=1e-3), remat=False)
+    step_fn = make_train_step(cfg, OptConfig(lr=1e-3), remat=False)
+    batches = [batch_on(pipe.next_batch(), device) for _ in range(4)]
+    # the rebuilt state holds new tensors: a new graph over them
+    step = compile_train_step(step_fn, state, batches[0], device=device)
+    if step.graph is None:
+        raise AssertionError("10c: no CUDA graph captured")
     resumed = []
-    for _ in range(4):
-        state, met = step(state, batch_on(pipe.next_batch(), device))
+    for batch in batches:
+        state, met = step(state, batch)
         resumed.append(float(met["nll"]))
     np.testing.assert_allclose(first + resumed, full, rtol=1e-4, atol=1e-4)
     log(f"[train] 10c: 4 steps, load of the newest commit and restore "
-        f"{t_restore:.3f} s, 4 more: losses {first + resumed} against the "
+        f"{t_restore:.3f} s, a new graph over the restored state, 4 more: "
+        f"losses {first + resumed} against the "
         f"uninterrupted {full}, within rtol=atol=1e-4; bit-equal: "
         f"{first + resumed == full}")
-    del state, step
+    del state, step, step_fn, batches
     torch.cuda.empty_cache()
 
     # -- 10d: supervisor restart, 2 layers ------------------------------
@@ -2302,13 +2579,19 @@ def phase_train(gen, device, card: str) -> dict:
     state = init_train_state(cfg2, init_model_params(cfg2, gen,
                                                      device=device), opt_cfg)
     pipe = TokenPipeline(cfg2.vocab, TRAIN["global_batch"], TRAIN["seq_len"])
-    step = make_train_step(cfg2, opt_cfg, remat=False)
+    step_fn = make_train_step(cfg2, opt_cfg, remat=False)
     ck = Chipmink(MemoryStore(), LGA(), chunk_bytes=TRAIN_CHUNK_BYTES,
                   async_mode=True, device=device)
     sup = TrainingSupervisor(ck, save_every=3)
+    graphs = []
 
     def do_step(st, i):
-        new, _ = step(st, batch_on(pipe.next_batch(), device))
+        batch = batch_on(pipe.next_batch(), device)
+        # a restore hands back new tensors: a new graph over them
+        if not graphs or st is not graphs[-1].state:
+            graphs.append(compile_train_step(step_fn, st, batch,
+                                             device=device))
+        new, _ = graphs[-1](st, batch)
         return new
 
     def restore(loaded):
@@ -2324,16 +2607,19 @@ def phase_train(gen, device, card: str) -> dict:
     launches += fp.launches["fingerprint_cmp"]
     if not (int(final["step"]) == 8 and stats["failures"] == 1
             and stats["resumed_from"] == [3] and not stats["save_errors"]
-            and pipe.cursor()["step"] == 8):
+            and pipe.cursor()["step"] == 8 and len(graphs) == 2
+            and all(g.graph is not None for g in graphs)):
         raise AssertionError(f"10d: step {int(final['step'])}, {stats}, "
                              f"cursor {pipe.cursor()}")
     log(f"[train] 10d ({card}): TrainingSupervisor, 2 layers, 8 steps, "
         f"a failure injected at step 5: {stats}, saves {sup.saves}, ended "
-        f"at step 8 with the data cursor at 8, {wall:.3f} s; K1 launches "
+        f"at step 8 with the data cursor at 8, a new graph after the "
+        f"restore ({len(graphs)} captured), {wall:.3f} s; K1 launches "
         f"{fp.launches['fingerprint_cmp']}")
     ck.close()
-    del final, state, ck, sup
+    del final, state, ck, sup, graphs
     torch.cuda.empty_cache()
+
     return dict(launches=launches, k1=k1, commit=commit)
 
 

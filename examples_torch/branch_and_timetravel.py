@@ -9,6 +9,11 @@ other; delta-aware checkout hops between branch tips reading only the
 pods that differ; `log` shows lineage; `gc` reclaims a discarded branch.
 
     PYTHONPATH=src python examples_torch/branch_and_timetravel.py [--device cpu]
+
+Training steps through `compile_train_step`, which writes the state in
+place (on the card one CUDA graph per branch); so the second branch forks
+from the state `checkout("main")` hands back, with a step compiled anew
+over it.
 """
 import argparse
 import os
@@ -23,10 +28,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import Chipmink, LGA, MemoryStore
 from repro_torch.core.ascc import readonly_state_leaves
 from repro_torch.launch.train import batch_on, snapshot_of
+from repro_torch.models.convert import train_state_from_numpy
 from repro_torch.models.model import init_model_params
 from repro_torch.train.data import TokenPipeline
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import init_train_state, make_train_step
+from repro_torch.train.train_step import (compile_train_step,
+                                          init_train_state, make_train_step)
 
 
 def run_branch(name, ck, cfg, state, frozen, device, steps=10):
@@ -38,11 +45,12 @@ def run_branch(name, ck, cfg, state, frozen, device, steps=10):
     step_fn = make_train_step(cfg, opt_cfg, frozen=frozen, remat=False)
     batch = batch_on(pipe.next_batch(), device)
     readonly = readonly_state_leaves(step_fn, state, batch)
+    step = compile_train_step(step_fn, state, batch, device=device)
     before = ck.store.total_bytes()
     tid = None
     for i in range(steps):
         batch = batch_on(pipe.next_batch(), device)
-        state, metrics = step_fn(state, batch)
+        state, metrics = step(state, batch)
         if (i + 1) % 5 == 0:
             tid = ck.save(snapshot_of(state, pipe), readonly_paths=readonly)
     wrote = ck.store.total_bytes() - before
@@ -66,8 +74,10 @@ def main() -> None:
     state = init_train_state(cfg, params, opt_cfg)
     pipe = TokenPipeline(cfg.vocab, 4, 64)
     step_fn = make_train_step(cfg, opt_cfg, remat=False)
-    for _ in range(10):
-        state, _ = step_fn(state, batch_on(pipe.next_batch(), device))
+    batches = [batch_on(pipe.next_batch(), device) for _ in range(10)]
+    step = compile_train_step(step_fn, state, batches[0], device=device)
+    for batch in batches:
+        state, _ = step(state, batch)
     base_tid = ck.save(snapshot_of(state, pipe))
     ck.tag("base", at=base_tid)
     print(f"base model saved: TimeID={base_tid} (tag 'base'), "
@@ -76,7 +86,9 @@ def main() -> None:
     frozen_a = tuple(f"params/layers/{i}" for i in range(cfg.n_layers - 1)
                      ) + ("params/embed",)
     tid_a, _ = run_branch("top-only", ck, cfg, state, frozen_a, device)
-    ck.checkout("main")                       # rewind before the next fork
+    # rewind before the next fork: the first branch trained `state` in
+    # place, so the fork starts from the commit checkout hands back
+    state = train_state_from_numpy(ck.checkout("main"), device)
     tid_b, _ = run_branch("no-embed", ck, cfg, state, ("params/embed",),
                           device)
 

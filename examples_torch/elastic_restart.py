@@ -4,8 +4,11 @@ checkpoint onto a different mesh (elastic restore).
 
     PYTHONPATH=src python examples_torch/elastic_restart.py [--device cpu]
 
-The restore lands on `make_local_mesh()`, a mesh over a single-rank
-process group this script starts (NCCL on the card, gloo on the CPU).
+Training steps through `compile_train_step` (on the card one CUDA graph,
+replayed at every step and writing the state in place); a restart hands
+back new tensors, so the step is compiled anew over them.  The restore
+lands on `make_local_mesh()`, a mesh over a single-rank process group
+this script starts (NCCL on the card, gloo on the CPU).
 """
 import argparse
 import os
@@ -28,7 +31,8 @@ from repro_torch.runtime.fault_tolerance import (StragglerMonitor,
                                                  elastic_restore)
 from repro_torch.train.data import TokenPipeline
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import init_train_state, make_train_step
+from repro_torch.train.train_step import (compile_train_step,
+                                          init_train_state, make_train_step)
 from repro_torch.train.tree import tree_leaves
 
 
@@ -49,9 +53,14 @@ def main() -> None:
     state = init_train_state(cfg, params, opt_cfg)
     pipe = TokenPipeline(cfg.vocab, 4, 64)
     step_fn = make_train_step(cfg, opt_cfg, remat=False)
+    graph = None
 
     def do_step(st, i):
-        new, _ = step_fn(st, batch_on(pipe.next_batch(), device))
+        nonlocal graph
+        batch = batch_on(pipe.next_batch(), device)
+        if graph is None or st is not graph.state:   # a restart's tensors
+            graph = compile_train_step(step_fn, st, batch, device=device)
+        new, _ = graph(st, batch)
         return new
 
     def restore(loaded):

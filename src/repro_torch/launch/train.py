@@ -12,9 +12,13 @@ without a card), saving through Chipmink every `save_every` steps (async
 by default): the step's touch report (frozen masks, MoE expert counts)
 drives the active-variable filter, the static checker (`core.ascc`)
 proves frozen leaves read-only, and the data-pipeline cursor rides along
-as host state.  As in the reference, ``--reduced`` is on and cannot be
-turned off from the command line; `train(..., reduced=False)` runs the
-full-width configuration.
+as host state.  Where the reference jits the step, the loop steps through
+`compile_train_step` over the same eager step the checker traced: on a
+card one CUDA graph per `train` call, captured before the first save and
+replayed at every step, writing the state in place (a failed capture
+raises; there is no eager path on the card).  As in the reference,
+``--reduced`` is on and cannot be turned off from the command line;
+`train(..., reduced=False)` runs the full-width configuration.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from ..core.ascc import readonly_state_leaves
 from ..models.model import init_model_params
 from ..train.data import TokenPipeline
 from ..train.optimizer import OptConfig
-from ..train.train_step import (init_train_state, make_train_step,
+from ..train.train_step import (compile_train_step, init_train_state,
+                                make_train_step,
                                 touched_prefixes_from_metrics)
 
 
@@ -76,13 +81,14 @@ def train(arch: str, *, steps: int = 50, save_every: int = 10,
     readonly = readonly_state_leaves(step_fn, state, example)
     readonly = {"params/" + p if not p.startswith(("params", "opt", "step"))
                 else p for p in readonly}
+    step = compile_train_step(step_fn, state, example, device=device)
 
     losses: List[float] = []
     t_start = time.time()
     metrics: Dict = {}
     for i in range(steps):
         batch = batch_on(pipeline.next_batch(), device)
-        state, metrics = step_fn(state, batch)
+        state, metrics = step(state, batch)
         losses.append(float(metrics["nll"]))
         if (i + 1) % save_every == 0 or i + 1 == steps:
             touched = touched_prefixes_from_metrics(cfg, metrics, frozen)

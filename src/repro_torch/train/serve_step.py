@@ -137,24 +137,34 @@ def compile_decode_step(cfg: ArchConfig, params: Dict, cache: Dict, *,
     ``device="cpu"`` runs the same body eagerly.  DTensors (a mesh's
     steps, the dry-run's meta shards) never go through a graph: they
     raise, and `make_decode_step` runs them."""
+    device = graph_device("compile_decode_step", "make_decode_step", device,
+                          tree_leaves((params, cache)))
+    return DecodeGraph(cfg, params, cache, device)
+
+
+def graph_device(what: str, eager: str, device: Any,
+                 leaves: Any) -> torch.device:
+    """The device a compiled step (`what`) runs on: ``"cuda"`` (the
+    current card when no index is given; it raises without one) or
+    ``"cpu"``.  Every tensor in `leaves` must lie there; a DTensor raises,
+    since a mesh's steps run eagerly through `eager`."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("compile_decode_step: no CUDA device; pass "
-                               "device='cpu' to run the step eagerly")
+            raise RuntimeError(f"{what}: no CUDA device; pass device='cpu' "
+                               f"to run the step eagerly")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     elif device.type != "cpu":
-        raise ValueError(f"compile_decode_step: device {device} is neither "
-                         f"cuda nor cpu")
-    for leaf in tree_leaves((params, cache)):
+        raise ValueError(f"{what}: device {device} is neither cuda nor cpu")
+    for leaf in leaves:
         if is_dtensor(leaf):
-            raise TypeError("compile_decode_step: a DTensor leaf; steps on "
-                            "a mesh run eagerly through make_decode_step")
+            raise TypeError(f"{what}: a DTensor leaf; steps on a mesh run "
+                            f"eagerly through {eager}")
         if leaf.device != device:
-            raise ValueError(f"compile_decode_step: a leaf on {leaf.device}"
-                             f", the step on {device}")
-    return DecodeGraph(cfg, params, cache, device)
+            raise ValueError(f"{what}: a leaf on {leaf.device}, the step on "
+                             f"{device}")
+    return device
 
 
 def greedy_generate(cfg: ArchConfig, params: Dict, prompt: torch.Tensor,

@@ -12,6 +12,12 @@ TrainState = {"params", "opt", "step" [, "ef"]}.  The port of
   * optional int8 error-feedback gradient compression,
   * the MoE touch report's `touched_prefixes_from_metrics`.
 
+`compile_train_step` is the port's counterpart of the reference's
+`jax.jit(make_train_step(...))` (`repro.launch.train`): a `TrainGraph`
+binds one TrainState and, on a card, replays the whole step (forward,
+backward and optimizer) as one CUDA graph per call, writing the new
+state into the state's own tensors.
+
 Gradients come from `value_and_grad`, the counterpart of
 `jax.value_and_grad(..., has_aux=True)` built on `torch.autograd.grad`:
 `torch.func.grad_and_value` refuses the saved-tensor hooks that
@@ -31,7 +37,8 @@ from ..models.model import api
 from .grad_compress import tree_quantize_dequantize
 from .optimizer import (OptConfig, clip_by_global_norm, is_frozen, opt_init,
                         opt_update)
-from .tree import tree_leaves, tree_map, tree_replace
+from .serve_step import WARMUP_STEPS, graph_device
+from .tree import tree_leaves, tree_leaves_with_paths, tree_map, tree_replace
 
 
 def init_train_state(cfg: ArchConfig, params: Any, opt_cfg: OptConfig,
@@ -147,6 +154,127 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         return new_state, metrics
 
     return train_step
+
+
+class TrainGraph:
+    """One TrainState's train step; built by `compile_train_step`.
+    ``step(state, batch)`` -> ``(state, metrics)``.
+
+    Its static buffers are one tensor per batch key (the example batch's
+    shapes and dtypes), the state's own tensors, and one tensor per
+    metric.  `state` comes back as the same dict of the same tensors at
+    every call, written in place; `metrics` is one dict of buffers that
+    the next call overwrites.  The body is ``step_fn(state, batch)``
+    unchanged, then an in-place copy of each new leaf into the state's
+    own tensor.  A leaf the step hands back as the very tensor it got (a
+    frozen parameter, which `core.ascc` proves read-only) is never
+    written, so Chipmink's read-only skip stays sound.  The step counter
+    stays a 0-d int32 tensor on the device.
+
+    On a card, `WARMUP_STEPS` eager calls on a side stream come first
+    (the eager step writes none of its inputs, so they run on the state
+    itself and their results are dropped); then the body is captured
+    once, and each call copies the batch in and replays the graph on the
+    current stream.  An async save's snapshot, taken on that stream, thus
+    stays ordered before the next step's in-place writes.  The graph's
+    private memory pool keeps every temporary of the step (activations,
+    gradients, the optimizer's float32 casts and moments before the copy
+    back); nothing a caller keeps lives in it.  On the CPU each call runs
+    the same body eagerly through the same buffers.
+
+    A graph is bound to the tensors it captured: when a restore or a
+    checkout hands back new tensors, compile a new step over them.
+    """
+
+    def __init__(self, step_fn: Callable, state: Dict, batch: Dict,
+                 device: torch.device) -> None:
+        self._step_fn = step_fn
+        self.state = state
+        self._paths = tree_leaves_with_paths(state)
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.metrics: Optional[Dict] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        if device.type == "cuda":
+            self._capture(device)
+
+    def _body(self) -> None:
+        new, metrics = self._step_fn(self.state, self.batch)
+        got = tree_leaves_with_paths(new)
+        if [p for p, _ in got] != [p for p, _ in self._paths]:
+            raise ValueError("compile_train_step: the step's new state has "
+                             "other leaves than the state it was given")
+        for (path, old), (_, leaf) in zip(self._paths, got):
+            if leaf is old:
+                continue
+            if leaf.shape != old.shape or leaf.dtype != old.dtype:
+                raise ValueError(f"compile_train_step: new {path} is "
+                                 f"{leaf.dtype}{list(leaf.shape)}, the "
+                                 f"state's {old.dtype}{list(old.shape)}")
+            old.copy_(leaf)
+        if self.metrics is None:
+            self.metrics = {k: torch.empty_like(v) for k, v in metrics.items()}
+        for k, v in metrics.items():
+            self.metrics[k].copy_(v)
+
+    def _capture(self, device: torch.device) -> None:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                # one new state alive at a time
+                metrics = self._step_fn(self.state, self.batch)[1]
+            self.metrics = {k: torch.empty_like(v) for k, v in metrics.items()}
+        torch.cuda.current_stream(device).wait_stream(side)
+        del metrics
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: an async save body on another thread may sync or
+        # allocate while this thread captures.  A sync in the body itself
+        # still fails the capture, which raises.
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self._body()
+        self.graph = graph
+
+    def __call__(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        leaves = tree_leaves(state)
+        if len(leaves) != len(self._paths) or any(
+                a is not b for a, (_, b) in zip(leaves, self._paths)):
+            raise ValueError("compile_train_step: a state other than the "
+                             "one the step was compiled over; compile a new "
+                             "step over it")
+        if sorted(batch) != sorted(self.batch):
+            raise ValueError(f"compile_train_step: batch keys "
+                             f"{sorted(batch)}, compiled for "
+                             f"{sorted(self.batch)}")
+        for k, v in batch.items():
+            buf = self.batch[k]
+            if (v.shape, v.dtype, v.device) != (buf.shape, buf.dtype,
+                                                buf.device):
+                raise ValueError(f"compile_train_step: batch {k!r} is "
+                                 f"{v.dtype}{list(v.shape)} on {v.device}, "
+                                 f"compiled for {buf.dtype}"
+                                 f"{list(buf.shape)} on {buf.device}")
+            buf.copy_(v)
+        if self.graph is None:
+            self._body()
+        else:
+            self.graph.replay()
+        return self.state, self.metrics
+
+
+def compile_train_step(step_fn: Callable, state: Dict, example_batch: Dict,
+                       *, device: Any = "cuda") -> TrainGraph:
+    """The port's `jax.jit(make_train_step(...))` for one TrainState: a
+    `TrainGraph` over `state` (see there).  `step_fn` is the eager step
+    `make_train_step` returns, the one the static checker traces.  Every
+    leaf of `state` and `example_batch` must lie on `device`, ``"cuda"``
+    by default: there the step is captured as a CUDA graph, and a failed
+    capture or replay raises.  ``device="cpu"`` runs the same body
+    eagerly.  DTensors (a mesh's steps, the dry-run's meta shards) never
+    go through a graph: they raise, and `make_train_step` runs them."""
+    device = graph_device("compile_train_step", "make_train_step", device,
+                          tree_leaves((state, example_batch)))
+    return TrainGraph(step_fn, state, example_batch, device)
 
 
 def touched_prefixes_from_metrics(cfg: ArchConfig, metrics: Dict,
