@@ -1,0 +1,8 @@
+"""Median over the window's saves of the program's `t_podding` +
+`t_decide` timers (`core/lga`, `core/podding`, pod digests and
+thesaurus lookups)."""
+from chipbench.harness.readers import stage_ms
+
+
+def read(rec):
+    return stage_ms(rec, ["t_podding", "t_decide"])
