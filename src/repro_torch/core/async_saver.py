@@ -44,7 +44,9 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Callable, Deque, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+from .trace import span
 
 
 class AsyncSaveError(RuntimeError):
@@ -126,7 +128,8 @@ class AsyncSaver:
             return errs
 
     def submit(self, fn: Callable[[], Any],
-               prepare: Optional[Callable[[], Any]] = None) -> None:
+               prepare: Optional[Callable[[], Any]] = None,
+               stats: Optional[Dict[str, Any]] = None) -> None:
         """Enqueue `fn` on the podding thread.  Returns immediately while
         fewer than `depth` saves are in flight; otherwise blocks until the
         oldest save retires (backpressure, counted in `n_stalls`).
@@ -140,8 +143,11 @@ class AsyncSaver:
         joined the prior thread): the pending errors re-raise (combined
         when several bodies failed) and `fn` is NOT enqueued, so a loop
         that only ever calls save() cannot run forever on silently
-        missing checkpoints."""
-        with self._cv:
+        missing checkpoints.
+
+        The wait for a slot is the span ``save.slot_wait``; `stats`, when
+        given, receives its seconds as ``t_slot_wait``."""
+        with span("save.slot_wait", stats, "t_slot_wait"), self._cv:
             err = self._drain_errors_locked()
             if err is not None:
                 raise err

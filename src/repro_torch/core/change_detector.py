@@ -45,6 +45,7 @@ import numpy as np
 from ..kernels import batch as kbatch
 from ..kernels import ops as kops
 from .graph import CHUNK, Node, ObjectGraph
+from .trace import span
 
 
 def pack_digest_table(digests: Dict[str, bytes]) -> Dict[str, bytes]:
@@ -152,7 +153,8 @@ class ChangeDetector:
         return self._table[i].tobytes()
 
     def _digest(self, leaves: List[Node], graph: ObjectGraph,
-                speculate: Optional[Set[str]] = None
+                speculate: Optional[Set[str]] = None,
+                stats: Optional[Dict[str, Any]] = None
                 ) -> kbatch.DigestResult:
         """Digest all chunks of `leaves` → slot-ordered DigestResult.
 
@@ -160,44 +162,46 @@ class ChangeDetector:
         resident previous table, speculated payloads compacted into the
         one device sync.  Batched mode: bucketed kernels + one device
         sync total.  Oracle mode: per-leaf kernel calls + one sync per
-        device leaf.
+        device leaf.  The calls, launch to fetched result, are the span
+        ``save.digest.call`` (``stats["t_digest_call"]``).
         """
         items = [(leaf.key, graph.arrays[leaf.key]) for leaf in leaves]
-        if self.fused:
-            res, self._dev_table = kbatch.digest_leaves_fused(
-                items, chunk_bytes=self.chunk_bytes, seed=self.seed,
-                table=self._dev_table,
-                lookup=self._lookup_digest, spec_keys=speculate,
-                device=self.device)
-            return res
-        if self.batched:
-            return kbatch.digest_leaves(
-                items, chunk_bytes=self.chunk_bytes, seed=self.seed,
-                device=self.device)
-        keys: List[str] = []
-        mats: List[np.ndarray] = []
-        leaf_rows: Dict[str, int] = {}
-        n_syncs = 0
-        row = 0
-        for lkey, arr in items:
-            if kops.is_host_array(arr):
-                dig = kops.leaf_fingerprint_np(
-                    arr, chunk_bytes=self.chunk_bytes, seed=self.seed)
-            else:
-                if arr.device != self.device:
-                    raise ValueError(f"leaf {lkey!r} is on {arr.device}, "
-                                     f"not on {self.device}")
-                dig = kops.leaf_fingerprint(
-                    arr, chunk_bytes=self.chunk_bytes, seed=self.seed)
-                n_syncs += 1
-            leaf_rows[lkey] = row
-            keys.extend(f"{lkey}#[{ci}]" for ci in range(dig.shape[0]))
-            mats.append(np.asarray(dig, np.uint32))
-            row += dig.shape[0]
-        mat = (np.concatenate(mats, axis=0) if mats
-               else np.zeros((0, 4), np.uint32))
-        return kbatch.DigestResult(keys=keys, mat=mat, n_syncs=n_syncs,
-                                   leaf_rows=leaf_rows)
+        with span("save.digest.call", stats, "t_digest_call"):
+            if self.fused:
+                res, self._dev_table = kbatch.digest_leaves_fused(
+                    items, chunk_bytes=self.chunk_bytes, seed=self.seed,
+                    table=self._dev_table,
+                    lookup=self._lookup_digest, spec_keys=speculate,
+                    device=self.device)
+                return res
+            if self.batched:
+                return kbatch.digest_leaves(
+                    items, chunk_bytes=self.chunk_bytes, seed=self.seed,
+                    device=self.device)
+            keys: List[str] = []
+            mats: List[np.ndarray] = []
+            leaf_rows: Dict[str, int] = {}
+            n_syncs = 0
+            row = 0
+            for lkey, arr in items:
+                if kops.is_host_array(arr):
+                    dig = kops.leaf_fingerprint_np(
+                        arr, chunk_bytes=self.chunk_bytes, seed=self.seed)
+                else:
+                    if arr.device != self.device:
+                        raise ValueError(f"leaf {lkey!r} is on {arr.device}, "
+                                         f"not on {self.device}")
+                    dig = kops.leaf_fingerprint(
+                        arr, chunk_bytes=self.chunk_bytes, seed=self.seed)
+                    n_syncs += 1
+                leaf_rows[lkey] = row
+                keys.extend(f"{lkey}#[{ci}]" for ci in range(dig.shape[0]))
+                mats.append(np.asarray(dig, np.uint32))
+                row += dig.shape[0]
+            mat = (np.concatenate(mats, axis=0) if mats
+                   else np.zeros((0, 4), np.uint32))
+            return kbatch.DigestResult(keys=keys, mat=mat, n_syncs=n_syncs,
+                                       leaf_rows=leaf_rows)
 
     def verify(self, graph: ObjectGraph,
                speculate: Optional[Set[str]] = None) -> ChangeReport:
@@ -217,7 +221,10 @@ class ChangeDetector:
     # ------------------------------------------------------------------
     def detect(self, graph: ObjectGraph,
                active_leaf_paths: Optional[Set[str]] = None,
-               speculate: Optional[Set[str]] = None) -> ChangeReport:
+               speculate: Optional[Set[str]] = None,
+               stats: Optional[Dict[str, Any]] = None) -> ChangeReport:
+        """Digest the chunks of `graph` against the previous table.
+        `stats`, when given, receives ``t_digest_call`` (`_digest`)."""
         # 1. choose the leaves to digest: every active leaf, plus any
         # inactive leaf with chunks the table has never seen (those must
         # be digested now; their already-seen siblings still inherit).
@@ -231,7 +238,7 @@ class ChangeDetector:
             elif self._seen_leaves.get(lkey) != len(leaf.children):
                 digest_leaves.append(leaf)
 
-        res = self._digest(digest_leaves, graph, speculate)
+        res = self._digest(digest_leaves, graph, speculate, stats)
         C = len(res.keys)
 
         # 2. dirtiness per slot row.  Fused path: the kernel already

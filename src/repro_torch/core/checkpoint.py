@@ -13,8 +13,11 @@ A load reverses it: manifest → resolve pods (synonyms are content-addressed)
 Manifests, pods, stores and the meta blobs (refs, leases, the TimeID
 counter, the refcount index) are byte-identical to the reference
 package's (`repro.core.checkpoint`) for the same state and the same
-sequence of calls: a store written by either package loads, checks out
-and passes fsck in the other.
+sequence of calls, but for the values of a manifest's stats block, whose
+keys are the reference's less five that nothing read (``t_graph_inc``,
+``n_nodes_reused``, ``n_nodes_rebuilt``, ``n_fused_rows``,
+``n_pod_digests_reused``): a store written by either package loads,
+checks out and passes fsck in the other.
 
 Device.  ``Chipmink(..., device="cuda")`` is the default; without a CUDA
 device the constructor raises.  A `torch.Tensor` leaf takes the device
@@ -164,7 +167,6 @@ mark-and-sweep oracle and trues the index up.
 from __future__ import annotations
 
 import hashlib
-import time as _time
 import warnings
 from typing import Any, Dict, Iterable, List, Optional, Set
 
@@ -187,6 +189,7 @@ from .podding import (PodAssignment, Unpodder, batched_chunk_fetch,
                       pod_structural_digest, serialize_pod)
 from .store import BaseStore, MemoryStore
 from .thesaurus import PodThesaurus
+from .trace import span
 from .volatility import FlipTracker
 
 TimeID = int
@@ -194,6 +197,14 @@ TimeID = int
 #: meta blob holding the next unissued TimeID (multi-writer mode only):
 #: a CAS counter, so concurrent writers never mint the same commit id.
 TID_COUNTER_META_KEY = "tid_counter"
+
+#: stage timers of `save_stats` that a manifest's stats block leaves
+#: out, so that the block holds the reference package's keys (less five,
+#: module docstring) and the two packages' manifests of a save are of
+#: one size
+SPAN_ONLY_STATS = frozenset({
+    "t_slot_wait", "t_digest_call", "t_track", "t_intent",
+    "t_commit_manifest", "t_commit_refcounts", "t_commit_refs"})
 
 
 class Chipmink:
@@ -390,130 +401,134 @@ class Chipmink:
         parent: Optional[TimeID] = None,
         branch: Optional[str] = None,
     ) -> TimeID:
-        time_id = self._alloc_time_id()
-        if parent is None:
-            if branch is not None:
-                # commit onto a named ref: chain to ITS tip (None for a
-                # branch this commit will create), never to local HEAD.
-                parent = self.versions.branches.get(branch)
-            else:
-                parent = self._head      # commit chains to HEAD by default
+        with span("save") as sp:
+            time_id = self._alloc_time_id()
+            sp.time_id = time_id
+            if parent is None:
+                if branch is not None:
+                    # commit onto a named ref: chain to ITS tip (None for
+                    # a branch this commit will create), never to local
+                    # HEAD.
+                    parent = self.versions.branches.get(branch)
+                else:
+                    parent = self._head  # commit chains to HEAD by default
 
-        t0 = _time.perf_counter()
-        if self._graph_cache is not None:
-            graph, ginfo = self._graph_cache.build(state)
-        else:
-            graph = build_graph(state, chunk_bytes=self.chunk_bytes)
-            ginfo = None
-        t_graph = _time.perf_counter() - t0
-
-        snap: Dict[str, Any] = {}
-
-        def work() -> None:
-            self._save_body(time_id, graph, ginfo, accessed_vars,
-                            touched_prefixes, readonly_paths, parent, t_graph,
-                            snap, branch)
-
-        if self.async_mode:
-            ready: List[Optional[torch.cuda.Event]] = []
-
-            def body() -> None:
-                if ready[0] is None:
-                    work()
-                    return
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self._side_stream):
-                    self._side_stream.wait_event(ready[0])
-                    work()
-
-            try:
-                # overlapped; FIFO on the podding thread.  The snapshot is
-                # taken once a pipeline slot is free, so a stalled save
-                # holds no copy while it waits.  May re-raise a PREVIOUS
-                # save's failure, in which case THIS save is dropped (its
-                # body never enqueued), as it is when the snapshot fails.
-                self.saver.submit(body, prepare=lambda: ready.append(
-                    self._snapshot(graph, time_id, snap)))
-            except BaseException:
-                # The graph cache already advanced for the dropped save, so
-                # a later identical state would diff as "unchanged" against
-                # a build that never persisted.  Invalidating the cache
-                # forces the next save to rebuild from scratch; queued
-                # bodies may still re-arm _prev_pods / _pod_digests, but a
-                # from-scratch build never consults them.
+            stats: Dict[str, Any] = {"time_id": time_id}
+            with span("save.graph", stats, "t_graph"):
                 if self._graph_cache is not None:
-                    self._graph_cache.invalidate()
-                raise
-        else:
-            work()
-        self._head = time_id
+                    graph, ginfo = self._graph_cache.build(state)
+                else:
+                    graph = build_graph(state, chunk_bytes=self.chunk_bytes)
+                    ginfo = None
+            stats["n_leaf_copies"] = 0
+
+            def work() -> None:
+                self._save_body(sp, stats, graph, ginfo, accessed_vars,
+                                touched_prefixes, readonly_paths, parent,
+                                branch)
+
+            if self.async_mode:
+                ready: List[Optional[torch.cuda.Event]] = []
+
+                def body() -> None:
+                    if ready[0] is None:
+                        work()
+                        return
+                    with torch.cuda.device(self.device), \
+                            torch.cuda.stream(self._side_stream):
+                        self._side_stream.wait_event(ready[0])
+                        work()
+
+                try:
+                    # overlapped; FIFO on the podding thread.  The
+                    # snapshot is taken once a pipeline slot is free, so a
+                    # stalled save holds no copy while it waits.  May
+                    # re-raise a PREVIOUS save's failure, in which case
+                    # THIS save is dropped (its body never enqueued), as
+                    # it is when the snapshot fails.
+                    self.saver.submit(body, prepare=lambda: ready.append(
+                        self._snapshot(graph, time_id, stats)), stats=stats)
+                except BaseException:
+                    # The graph cache already advanced for the dropped
+                    # save, so a later identical state would diff as
+                    # "unchanged" against a build that never persisted.
+                    # Invalidating the cache forces the next save to
+                    # rebuild from scratch; queued bodies may still re-arm
+                    # _prev_pods / _pod_digests, but a from-scratch build
+                    # never consults them.
+                    if self._graph_cache is not None:
+                        self._graph_cache.invalidate()
+                    raise
+            else:
+                work()
+            self._head = time_id
         return time_id
 
     def _snapshot(self, graph: ObjectGraph, time_id: TimeID,
-                  snap: Dict[str, Any]) -> Optional[torch.cuda.Event]:
+                  stats: Dict[str, Any]) -> Optional[torch.cuda.Event]:
         """Async-mode snapshot on the caller's thread (see the snapshot
         rule in the module docstring): every tensor leaf of
         ``graph.arrays`` is replaced by its view into a fresh buffer
         copied on the current stream (a tensor on another device
         raises); small writable numpy leaves are copied
-        (copy-on-submit).  Fills ``snap`` with the stats and
-        returns the event the side stream must wait on (None off CUDA)."""
-        t0 = _time.perf_counter()
-        tensor_keys: List[str] = []
-        n_leaf_copies = 0
-        large_leaves: List[str] = []
-        for key, arr in graph.arrays.items():
-            if isinstance(arr, torch.Tensor):
-                if arr.device != self.device:
-                    raise ValueError(f"leaf {key!r} is on {arr.device}, "
-                                     f"not on {self.device}")
-                tensor_keys.append(key)
-            elif (isinstance(arr, np.ndarray) and arr.flags.writeable
-                    and self.copy_on_submit_bytes > 0):
-                if arr.nbytes <= self.copy_on_submit_bytes:
-                    graph.arrays[key] = arr.copy()
-                    n_leaf_copies += 1
-                else:
-                    large_leaves.append(key)
-        if large_leaves and self.large_leaf_action != "ignore":
-            msg = (
-                f"async save {time_id}: host leaf(s) "
-                f"{sorted(large_leaves)[:4]}"
-                f"{'...' if len(large_leaves) > 4 else ''} exceed "
-                f"copy_on_submit_bytes={self.copy_on_submit_bytes} and are "
-                "snapshotted BY REFERENCE — mutating them in place before "
-                "wait() returns corrupts the in-flight save.  Either raise "
-                "copy_on_submit_bytes past the largest host leaf, call "
-                "wait() before mutating, or silence with "
-                "large_leaf_action='ignore'.")
-            if self.large_leaf_action == "raise":
-                raise ValueError(msg)
-            fresh = [k for k in large_leaves
-                     if k not in self._large_leaves_warned]
-            if fresh:
-                self._large_leaves_warned.update(fresh)
-                warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        (copy-on-submit).  Writes the snapshot's entries of the save's
+        ``stats`` and returns the event the side stream must wait on
+        (None off CUDA)."""
+        with span("save.snapshot", stats, "t_snapshot"):
+            tensor_keys: List[str] = []
+            n_leaf_copies = 0
+            large_leaves: List[str] = []
+            for key, arr in graph.arrays.items():
+                if isinstance(arr, torch.Tensor):
+                    if arr.device != self.device:
+                        raise ValueError(f"leaf {key!r} is on {arr.device}, "
+                                         f"not on {self.device}")
+                    tensor_keys.append(key)
+                elif (isinstance(arr, np.ndarray) and arr.flags.writeable
+                        and self.copy_on_submit_bytes > 0):
+                    if arr.nbytes <= self.copy_on_submit_bytes:
+                        graph.arrays[key] = arr.copy()
+                        n_leaf_copies += 1
+                    else:
+                        large_leaves.append(key)
+            if large_leaves and self.large_leaf_action != "ignore":
+                msg = (
+                    f"async save {time_id}: host leaf(s) "
+                    f"{sorted(large_leaves)[:4]}"
+                    f"{'...' if len(large_leaves) > 4 else ''} exceed "
+                    f"copy_on_submit_bytes={self.copy_on_submit_bytes} "
+                    "and are snapshotted BY REFERENCE — mutating them in "
+                    "place before wait() returns corrupts the in-flight "
+                    "save.  Either raise copy_on_submit_bytes past the "
+                    "largest host leaf, call wait() before mutating, or "
+                    "silence with large_leaf_action='ignore'.")
+                if self.large_leaf_action == "raise":
+                    raise ValueError(msg)
+                fresh = [k for k in large_leaves
+                         if k not in self._large_leaves_warned]
+                if fresh:
+                    self._large_leaves_warned.update(fresh)
+                    warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
-        cuda = self.device.type == "cuda"
-        if cuda and self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(device=self.device)
-        n_bytes = 0
-        if tensor_keys:
-            views, buf = snapshot_tensors([graph.arrays[k]
-                                           for k in tensor_keys])
-            graph.arrays.update(zip(tensor_keys, views))
-            n_bytes = buf.numel()
+            cuda = self.device.type == "cuda"
+            if cuda and self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(device=self.device)
+            n_bytes = 0
+            if tensor_keys:
+                views, buf = snapshot_tensors([graph.arrays[k]
+                                               for k in tensor_keys])
+                graph.arrays.update(zip(tensor_keys, views))
+                n_bytes = buf.numel()
+                if cuda:
+                    # the body reads the buffer on the side stream: its memory
+                    # must not return to the caller stream's pool before then.
+                    buf.record_stream(self._side_stream)
+            ready = None
             if cuda:
-                # the body reads the buffer on the side stream: its memory
-                # must not return to the caller stream's pool before then.
-                buf.record_stream(self._side_stream)
-        ready = None
-        if cuda:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        snap.update(n_leaf_copies=n_leaf_copies, n_snapshot_bytes=n_bytes,
-                    t_snapshot=_time.perf_counter() - t0)
-        return ready
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            stats.update(n_leaf_copies=n_leaf_copies, n_snapshot_bytes=n_bytes)
+            return ready
 
     def _join_side_stream(self) -> None:
         """Order the caller's current stream after every body's device
@@ -529,13 +544,15 @@ class Chipmink:
         finally:
             self._join_side_stream()
 
-    def _save_body(self, time_id, graph, ginfo, accessed_vars,
-                   touched_prefixes, readonly_paths, parent, t_graph,
-                   snap, branch=None) -> None:
+    def _save_body(self, save_span, stats, graph, ginfo, accessed_vars,
+                   touched_prefixes, readonly_paths, parent,
+                   branch=None) -> None:
         try:
-            self._save_body_inner(time_id, graph, ginfo, accessed_vars,
-                                  touched_prefixes, readonly_paths, parent,
-                                  t_graph, snap, branch)
+            with span("save.body", stats, "t_body", cpu_key="t_body_cpu",
+                      parent=save_span):
+                self._save_body_inner(stats, graph, ginfo, accessed_vars,
+                                      touched_prefixes, readonly_paths,
+                                      parent, branch)
         except BaseException as exc:
             # A half-applied save poisons the reuse chain: the graph cache
             # has already advanced, so the next save must re-pod and
@@ -601,136 +618,127 @@ class Chipmink:
                     out.add(node.key)
         return out or None
 
-    def _save_body_inner(self, time_id, graph, ginfo, accessed_vars,
+    def _save_body_inner(self, stats, graph, ginfo, accessed_vars,
                          touched_prefixes, readonly_paths, parent,
-                         t_graph, snap, branch=None) -> None:
-        stats: Dict[str, Any] = {"time_id": time_id, "t_graph": t_graph,
-                                 "n_leaf_copies": snap.get("n_leaf_copies", 0)}
-        if snap:
-            stats["n_snapshot_bytes"] = snap["n_snapshot_bytes"]
-            stats["t_snapshot"] = snap["t_snapshot"]
-        if ginfo is not None:
-            stats["t_graph_inc"] = t_graph
-            stats["n_nodes_reused"] = ginfo.n_nodes_reused
-            stats["n_nodes_rebuilt"] = ginfo.n_nodes_rebuilt
-        t0 = _time.perf_counter()
-        if self.enable_avf:
-            active = self.avf.active_leaves(
-                graph,
-                readonly_paths=readonly_paths,
-                touched_prefixes=touched_prefixes,
-                prior_pods=self._prev_pods if accessed_vars is not None else None,
-                prior_graph=self._prev_graph,
-                accessed_vars=accessed_vars,
-            )
-        else:
-            active = {n.key for n in graph.leaf_nodes()}
-        stats["n_leaves"] = len(list(graph.leaf_nodes()))
-        stats["n_active_leaves"] = len(active)
-        stats["t_avf"] = _time.perf_counter() - t0
+                         branch=None) -> None:
+        time_id = stats["time_id"]
+        with span("save.avf", stats, "t_avf"):
+            if self.enable_avf:
+                active = self.avf.active_leaves(
+                    graph,
+                    readonly_paths=readonly_paths,
+                    touched_prefixes=touched_prefixes,
+                    prior_pods=(self._prev_pods if accessed_vars is not None
+                                else None),
+                    prior_graph=self._prev_graph,
+                    accessed_vars=accessed_vars,
+                )
+            else:
+                active = {n.key for n in graph.leaf_nodes()}
+            stats["n_leaves"] = len(list(graph.leaf_nodes()))
+            stats["n_active_leaves"] = len(active)
 
-        t0 = _time.perf_counter()
-        spec = self._speculate(graph, ginfo)
-        report = self.detector.detect(graph, active, speculate=spec)
-        stats["n_chunks"] = len(report.digests)
-        stats["n_dirty_chunks"] = len(report.dirty)
-        stats["t_digest"] = _time.perf_counter() - t0
+        with span("save.digest", stats, "t_digest"):
+            spec = self._speculate(graph, ginfo)
+            report = self.detector.detect(graph, active, speculate=spec,
+                                          stats=stats)
+            stats["n_chunks"] = len(report.digests)
+            stats["n_dirty_chunks"] = len(report.dirty)
         stats["n_digest_syncs"] = report.n_syncs
         stats["n_spec_predicted"] = len(spec) if spec else 0
         stats["n_spec_hits"] = report.n_spec_hits
         stats["n_spec_misses"] = report.n_spec_misses
-        stats["n_fused_rows"] = report.fused_rows
 
         if self.tracker is not None:
-            active_chunks = [n.key for n in graph.chunk_nodes()
-                             if "/".join(n.path) in active]
-            self.tracker.observe(graph, report.dirty, active_chunks)
+            with span("save.track", stats, "t_track"):
+                active_chunks = [n.key for n in graph.chunk_nodes()
+                                 if "/".join(n.path) in active]
+                self.tracker.observe(graph, report.dirty, active_chunks)
 
         # podding: reuse the previous assignment verbatim when the graph
         # structure is unchanged (memo locals preserved, §7.3 stability);
         # otherwise rerun the full LGA walk — the parity oracle — with the
         # rebuilt-key set so feature preparation stays incremental.
-        t0 = _time.perf_counter()
-        pods_reused = (self.incremental and ginfo is not None
-                       and not ginfo.from_scratch
-                       and not ginfo.structural_change
-                       and self._prev_pods is not None)
-        if pods_reused:
-            asg = self._prev_pods
-            stats["n_pods_reused"] = len(asg.pods)
-        else:
-            asg = pod_graph(graph, self.policy,
-                            flip_ema=self.tracker.ema if self.tracker else None,
-                            memo_page_size=self.memo_page_size,
-                            changed_keys=(ginfo.rebuilt_keys
-                                          if ginfo is not None else None))
-            stats["n_pods_reused"] = 0
-        stats["n_pods"] = len(asg.pods)
-        stats["t_podding"] = _time.perf_counter() - t0
+        with span("save.podding", stats, "t_podding"):
+            pods_reused = (self.incremental and ginfo is not None
+                           and not ginfo.from_scratch
+                           and not ginfo.structural_change
+                           and self._prev_pods is not None)
+            if pods_reused:
+                asg = self._prev_pods
+                stats["n_pods_reused"] = len(asg.pods)
+            else:
+                asg = pod_graph(graph, self.policy,
+                                flip_ema=(self.tracker.ema if self.tracker
+                                          else None),
+                                memo_page_size=self.memo_page_size,
+                                changed_keys=(ginfo.rebuilt_keys
+                                              if ginfo is not None else None))
+                stats["n_pods_reused"] = 0
+            stats["n_pods"] = len(asg.pods)
 
         # decide phase: structural digests + synonym lookups; no payload
         # bytes move yet.  With a reused assignment, only pods touched by
         # dirty chunks or changed scalar values re-hash their digest; the
         # rest reuse the previous save's digest (bit-identical: the digest
         # is a pure function of unchanged inputs).
-        t0 = _time.perf_counter()
-        touched_pods = None
-        if pods_reused and self._pod_digests:
-            touched_pods = set()
-            for key in report.dirty:
-                nid = graph.by_key.get(key)
-                if nid is not None:
-                    touched_pods.add(asg.node_pod[nid])
-            for key in (ginfo.scalar_changed_keys if ginfo else ()):
-                nid = graph.by_key.get(key)
-                if nid is not None:
-                    touched_pods.add(asg.node_pod[nid])
-        pods_meta: Dict[int, Dict[str, Any]] = {}
-        written = aliased = digests_reused = 0
-        bytes_before = self.store.total_bytes()
-        #: the parent commit's digest per pod id — the delta base each
-        #: touched pod would chain to (captured before new_digests lands).
-        prev_pod_digests = self._pod_digests
-        new_digests: Dict[int, bytes] = {}
-        to_write: List[tuple] = []        # (pid, pod, dig_hex, digest)
-        aliased_entries: List[tuple] = []  # same shape; dedup-skipped pods
-        for pid, pod in asg.pods.items():
-            if touched_pods is not None and pid not in touched_pods \
-                    and pid in self._pod_digests:
-                digest = self._pod_digests[pid]
-                digests_reused += 1
-            else:
-                digest = pod_structural_digest(pod, graph, asg,
-                                               report.digests)
-            new_digests[pid] = digest
-            dig_hex = digest.hex()
-            skip = False
-            if self.enable_cd:
-                with self.saver.l_ns:
-                    ref = self.thesaurus.lookup(digest)
-                if ref is not None:
-                    skip = True           # synonymous pod (§4.2)
-            if not skip:
-                if not self.enable_cd:
-                    # NoCD baseline: every save writes unconditionally
-                    # under a unique key (true snapshot cost, no dedup).
-                    h = hashlib.blake2b(digest, digest_size=16,
-                                        person=b"nocd")
-                    h.update(time_id.to_bytes(8, "little"))
-                    dig_hex = h.hexdigest()
-                to_write.append((pid, pod, dig_hex, digest))
-            else:
-                aliased += 1
-                aliased_entries.append((pid, pod, dig_hex, digest))
-            pods_meta[pid] = {
-                "d": dig_hex,
-                "pages": (asg.memo.pods[pid].pages
-                          if pid in asg.memo.pods else []),
-                "n": len(pod.node_ids),
-            }
-        self._pod_digests = new_digests
-        stats["n_pod_digests_reused"] = digests_reused
-        stats["t_decide"] = _time.perf_counter() - t0
+        with span("save.decide", stats, "t_decide"):
+            touched_pods = None
+            if pods_reused and self._pod_digests:
+                touched_pods = set()
+                for key in report.dirty:
+                    nid = graph.by_key.get(key)
+                    if nid is not None:
+                        touched_pods.add(asg.node_pod[nid])
+                for key in (ginfo.scalar_changed_keys if ginfo else ()):
+                    nid = graph.by_key.get(key)
+                    if nid is not None:
+                        touched_pods.add(asg.node_pod[nid])
+            pods_meta: Dict[int, Dict[str, Any]] = {}
+            written = aliased = 0
+            bytes_before = self.store.total_bytes()
+            #: the parent commit's digest per pod id — the delta base each
+            #: touched pod would chain to (captured before new_digests
+            #: lands).
+            prev_pod_digests = self._pod_digests
+            new_digests: Dict[int, bytes] = {}
+            to_write: List[tuple] = []        # (pid, pod, dig_hex, digest)
+            aliased_entries: List[tuple] = []  # same shape; dedup-skipped
+            for pid, pod in asg.pods.items():
+                if touched_pods is not None and pid not in touched_pods \
+                        and pid in self._pod_digests:
+                    digest = self._pod_digests[pid]
+                else:
+                    digest = pod_structural_digest(pod, graph, asg,
+                                                   report.digests)
+                new_digests[pid] = digest
+                dig_hex = digest.hex()
+                skip = False
+                if self.enable_cd:
+                    with self.saver.l_ns:
+                        ref = self.thesaurus.lookup(digest)
+                    if ref is not None:
+                        skip = True           # synonymous pod (§4.2)
+                if not skip:
+                    if not self.enable_cd:
+                        # NoCD baseline: every save writes unconditionally
+                        # under a unique key (true snapshot cost, no
+                        # dedup).
+                        h = hashlib.blake2b(digest, digest_size=16,
+                                            person=b"nocd")
+                        h.update(time_id.to_bytes(8, "little"))
+                        dig_hex = h.hexdigest()
+                    to_write.append((pid, pod, dig_hex, digest))
+                else:
+                    aliased += 1
+                    aliased_entries.append((pid, pod, dig_hex, digest))
+                pods_meta[pid] = {
+                    "d": dig_hex,
+                    "pages": (asg.memo.pods[pid].pages
+                              if pid in asg.memo.pods else []),
+                    "n": len(pod.node_ids),
+                }
+            self._pod_digests = new_digests
 
         # intent phase (multi-writer): declare the commit — its TimeID,
         # its parent and every digest the manifest will reference — under
@@ -738,21 +746,23 @@ class Chipmink:
         # trusted.  Aliased pods are then re-verified: a sweep that ran
         # before the intent landed may have deleted the blob the
         # thesaurus still points at, in which case the pod is rewritten.
-        lease = self._ensure_writer_lease()
+        lease = None
         n_alias_rewrites = 0
-        if lease is not None:
-            self.leases.set_intent(
-                lease,
-                time_ids=tuple(t for t in (time_id, parent)
-                               if t is not None),
-                digests=sorted({m["d"] for m in pods_meta.values()}))
-            for pid, pod, dig_hex, digest in aliased_entries:
-                if not self.store.has_pod(dig_hex):
-                    to_write.append((pid, pod, dig_hex, digest))
-                    with self.saver.l_ns:
-                        self.thesaurus.prune([dig_hex])
-                    aliased -= 1
-                    n_alias_rewrites += 1
+        if self.leases is not None:
+            with span("save.intent", stats, "t_intent"):
+                lease = self._ensure_writer_lease()
+                self.leases.set_intent(
+                    lease,
+                    time_ids=tuple(t for t in (time_id, parent)
+                                   if t is not None),
+                    digests=sorted({m["d"] for m in pods_meta.values()}))
+                for pid, pod, dig_hex, digest in aliased_entries:
+                    if not self.store.has_pod(dig_hex):
+                        to_write.append((pid, pod, dig_hex, digest))
+                        with self.saver.l_ns:
+                            self.thesaurus.prune([dig_hex])
+                        aliased -= 1
+                        n_alias_rewrites += 1
         stats["n_alias_rewrites"] = n_alias_rewrites
 
         # gather phase.  Fused path: payload bytes of speculated chunks
@@ -761,17 +771,16 @@ class Chipmink:
         # every written pod — the single-sync save).  Non-fused: ONE
         # batched device fetch for every chunk of every dirty pod (clean
         # pods never touch the device either way).
-        t0 = _time.perf_counter()
-        gather_nodes = [graph.node(nid) for _, pod, _, _ in to_write
-                        for nid in pod.node_ids]
-        if self.fused:
-            chunk_bytes_of, gather_syncs = fused_chunk_fetch(
-                graph, gather_nodes, report.payload)
-            stats["n_corrective_syncs"] = gather_syncs
-        else:
-            chunk_bytes_of, gather_syncs = batched_chunk_fetch(
-                graph, gather_nodes)
-        stats["t_gather"] = _time.perf_counter() - t0
+        with span("save.gather", stats, "t_gather"):
+            gather_nodes = [graph.node(nid) for _, pod, _, _ in to_write
+                            for nid in pod.node_ids]
+            if self.fused:
+                chunk_bytes_of, gather_syncs = fused_chunk_fetch(
+                    graph, gather_nodes, report.payload)
+                stats["n_corrective_syncs"] = gather_syncs
+            else:
+                chunk_bytes_of, gather_syncs = batched_chunk_fetch(
+                    graph, gather_nodes)
         stats["n_gather_syncs"] = gather_syncs
 
         # write phase: serialize + store from the prefetched host bytes.
@@ -779,114 +788,131 @@ class Chipmink:
         # (retry_policy); puts are idempotent — a pod is content-addressed
         # and the rename is atomic — so a retried step never double-
         # applies.  InjectedCrash (a BaseException) punches through.
-        t0 = _time.perf_counter()
-        n_retries = 0
-        # delta-chain eligibility for this save: only the reuse path has a
-        # per-pod parent digest AND the soundness proof (assignment reuse +
-        # detector mask) that non-patched entries are byte-identical.
-        delta_eligible = (self.delta_chains and self.enable_cd
-                          and pods_reused and touched_pods is not None)
-        scalar_changed = set(ginfo.scalar_changed_keys) if ginfo else set()
-        n_delta_pods = 0
-        chain_depth_max = 0
-        t_delta = 0.0
-        for pid, pod, dig_hex, digest in to_write:
-            data = serialize_pod(pod, graph, asg, chunk_bytes_of)
+        with span("save.write", stats, "t_write"):
+            n_retries = 0
+            # delta-chain eligibility for this save: only the reuse path
+            # has a per-pod parent digest AND the soundness proof
+            # (assignment reuse + detector mask) that non-patched entries
+            # are byte-identical.
+            delta_eligible = (self.delta_chains and self.enable_cd
+                              and pods_reused and touched_pods is not None)
+            scalar_changed = (set(ginfo.scalar_changed_keys) if ginfo
+                              else set())
+            n_delta_pods = 0
+            chain_depth_max = 0
+            t_delta = 0.0
+            for pid, pod, dig_hex, digest in to_write:
+                data = serialize_pod(pod, graph, asg, chunk_bytes_of)
 
-            delta_blob = base_hex = None
-            delta_depth = 0
-            base = prev_pod_digests.get(pid) if delta_eligible else None
-            if base is not None and base != digest:
-                td0 = _time.perf_counter()
-                cand_hex = base.hex()
-                try:
-                    # depth the new pod would sit at if chained to base;
-                    # a missing/broken/cyclic base chain disqualifies.
-                    depth = self.store.pod_chain_depth(cand_hex) + 1
-                except (FileNotFoundError, ValueError):
-                    depth = None
-                if (depth is not None
-                        and depth <= self.delta_policy.max_chain_depth):
-                    changed_locals = [
-                        i for i, nid in enumerate(pod.node_ids)
-                        if ((n := graph.node(nid)).kind == CHUNK
-                            and n.key in report.dirty)
-                        or n.key in scalar_changed]
-                    cand = encode_pod_delta(data, cand_hex, changed_locals)
-                    if self.delta_policy.admit(len(cand), len(data), depth):
-                        delta_blob, base_hex, delta_depth = \
-                            cand, cand_hex, depth
-                t_delta += _time.perf_counter() - td0
+                delta_blob = base_hex = None
+                delta_depth = 0
+                base = prev_pod_digests.get(pid) if delta_eligible else None
+                if base is not None and base != digest:
+                    with span("save.write.delta") as sd:
+                        cand_hex = base.hex()
+                        try:
+                            # depth the new pod would sit at if chained to
+                            # base; a missing/broken/cyclic base chain
+                            # disqualifies.
+                            depth = self.store.pod_chain_depth(cand_hex) + 1
+                        except (FileNotFoundError, ValueError):
+                            depth = None
+                        if (depth is not None and depth
+                                <= self.delta_policy.max_chain_depth):
+                            changed_locals = [
+                                i for i, nid in enumerate(pod.node_ids)
+                                if ((n := graph.node(nid)).kind == CHUNK
+                                    and n.key in report.dirty)
+                                or n.key in scalar_changed]
+                            cand = encode_pod_delta(data, cand_hex,
+                                                    changed_locals)
+                            if self.delta_policy.admit(len(cand), len(data),
+                                                       depth):
+                                delta_blob, base_hex, delta_depth = \
+                                    cand, cand_hex, depth
+                    t_delta += sd.seconds
 
-            def put_one(dig_hex=dig_hex, data=data, digest=digest,
-                        delta_blob=delta_blob) -> bool:
-                with self.saver.l_ns:
-                    if self.enable_cd:
-                        if delta_blob is not None:
-                            fresh = self.store.put_pod_delta(dig_hex,
-                                                             delta_blob)
-                        else:
-                            fresh = self.store.put_pod(dig_hex, data)
-                        self.thesaurus.insert(digest, dig_hex)
-                        return fresh
-                    self.store.put_pod(dig_hex, data)
-                    return True
+                def put_one(dig_hex=dig_hex, data=data, digest=digest,
+                            delta_blob=delta_blob) -> bool:
+                    with self.saver.l_ns:
+                        if self.enable_cd:
+                            if delta_blob is not None:
+                                fresh = self.store.put_pod_delta(dig_hex,
+                                                                 delta_blob)
+                            else:
+                                fresh = self.store.put_pod(dig_hex, data)
+                            self.thesaurus.insert(digest, dig_hex)
+                            return fresh
+                        self.store.put_pod(dig_hex, data)
+                        return True
 
-            fresh, nr = call_with_retries(put_one, self.retry_policy)
-            n_retries += nr
-            if fresh:
-                written += 1
-                if delta_blob is not None:
-                    # the manifest records chain structure only for pods
-                    # this commit actually stored in delta form (a dedup
-                    # hit keeps whatever form the digest already has).
-                    pods_meta[pid]["delta_of"] = base_hex
-                    n_delta_pods += 1
-                    chain_depth_max = max(chain_depth_max, delta_depth)
-            else:
-                aliased += 1              # disk-level synonym
-        stats["t_write"] = _time.perf_counter() - t0
+                fresh, nr = call_with_retries(put_one, self.retry_policy)
+                n_retries += nr
+                if fresh:
+                    written += 1
+                    if delta_blob is not None:
+                        # the manifest records chain structure only for
+                        # pods this commit actually stored in delta form (a
+                        # dedup hit keeps whatever form the digest already
+                        # has).
+                        pods_meta[pid]["delta_of"] = base_hex
+                        n_delta_pods += 1
+                        chain_depth_max = max(chain_depth_max, delta_depth)
+                else:
+                    aliased += 1              # disk-level synonym
         stats["n_retries"] = n_retries
         stats["pods_written"] = written
         stats["pods_aliased"] = aliased
         stats["n_delta_pods"] = n_delta_pods
         stats["t_delta_encode"] = t_delta
         stats["chain_depth_max"] = chain_depth_max
-        stats["bytes_written"] = self.store.total_bytes() - bytes_before
 
-        manifest = {
-            "time_id": time_id,
-            "parent": parent,
-            "root_pod": asg.root_pod,
-            "page_size": self.memo_page_size,
-            "pods": {str(pid): meta for pid, meta in pods_meta.items()},
-            # the save's full chunk-digest table, so a later delta-aware
-            # checkout can prime change detection without re-hashing
-            "chunks": pack_digest_table(report.digests),
-            "stats": {k: v for k, v in stats.items()
-                      if isinstance(v, (int, float, str))},
-        }
+        # commit: the manifest, the refcounts and the refs, as one unit
+        with span("save.commit", stats, "t_commit"):
+            stats["bytes_written"] = self.store.total_bytes() - bytes_before
+            manifest: Dict[str, Any] = {}
 
-        def commit() -> None:
-            with self.saver.l_ns:
-                # fencing gate: the refs CAS must not publish a commit
-                # whose lease was reaped or taken over mid-save — a fenced
-                # GC may already have swept what the dead intent pinned.
-                if lease is not None:
-                    self.leases.check(lease)
-                # the manifest put is the data commit point; the refs CAS
-                # in record() is the visibility commit point.  All three
-                # steps are idempotent, so the unit is safe to retry on
-                # transient I/O errors.  The refcount lands BEFORE the refs
-                # CAS: a crash in between leaves a counted dangling commit
-                # — conservative, and exactly what rebuild() computes.
-                self.store.put_manifest(time_id, manifest)
-                if self.refcounts is not None:
-                    self.refcounts.record_commit(time_id, manifest)
-                self.versions.record(time_id, parent, branch=branch)
+            def commit() -> None:
+                with self.saver.l_ns:
+                    # fencing gate: the refs CAS must not publish a commit
+                    # whose lease was reaped or taken over mid-save — a
+                    # fenced GC may already have swept what the dead
+                    # intent pinned.
+                    if lease is not None:
+                        self.leases.check(lease)
+                    # the manifest put is the data commit point; the refs
+                    # CAS in record() is the visibility commit point.  All
+                    # three steps are idempotent, so the unit is safe to
+                    # retry on transient I/O errors.  The refcount lands
+                    # BEFORE the refs CAS: a crash in between leaves a
+                    # counted dangling commit — conservative, and exactly
+                    # what rebuild() computes.
+                    with span("save.commit.manifest", stats,
+                              "t_commit_manifest"):
+                        if not manifest:
+                            manifest.update(
+                                time_id=time_id, parent=parent,
+                                root_pod=asg.root_pod,
+                                page_size=self.memo_page_size,
+                                pods={str(pid): meta
+                                      for pid, meta in pods_meta.items()},
+                                # the save's full chunk-digest table, so a
+                                # later delta-aware checkout can prime
+                                # change detection without re-hashing
+                                chunks=pack_digest_table(report.digests),
+                                stats={k: v for k, v in stats.items()
+                                       if isinstance(v, (int, float, str))
+                                       and k not in SPAN_ONLY_STATS})
+                        self.store.put_manifest(time_id, manifest)
+                    if self.refcounts is not None:
+                        with span("save.commit.refcounts", stats,
+                                  "t_commit_refcounts"):
+                            self.refcounts.record_commit(time_id, manifest)
+                    with span("save.commit.refs", stats, "t_commit_refs"):
+                        self.versions.record(time_id, parent, branch=branch)
 
-        _, nr = call_with_retries(commit, self.retry_policy)
-        stats["n_retries"] = n_retries + nr
+            _, nr = call_with_retries(commit, self.retry_policy)
+            stats["n_retries"] = n_retries + nr
         if lease is not None:
             # the commit is now pinned by refs; best-effort intent clear.
             try:

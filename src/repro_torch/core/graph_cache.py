@@ -68,8 +68,6 @@ class IncrementalBuildInfo:
     """What the cached re-walk did, for save stats and re-podding."""
 
     from_scratch: bool
-    n_nodes_reused: int = 0
-    n_nodes_rebuilt: int = 0
     #: any container/leaf/alias created, removed, or re-shaped — exactly
     #: the condition under which the previous PodAssignment cannot be
     #: reused verbatim.
@@ -101,8 +99,7 @@ class GraphCache:
                                  for n in g.nodes.values()
                                  if n.kind == SCALAR}
             return g, IncrementalBuildInfo(
-                from_scratch=True, n_nodes_rebuilt=g.n_nodes(),
-                structural_change=True,
+                from_scratch=True, structural_change=True,
                 rebuilt_keys=set(g.by_key))
         g, info = self._build_incremental(state)
         self.graph = g
@@ -165,10 +162,7 @@ class GraphCache:
         def register(node: Node, reused: bool) -> None:
             nodes[node.node_id] = node
             by_key[node.key] = node.node_id
-            if reused:
-                info.n_nodes_reused += 1
-            else:
-                info.n_nodes_rebuilt += 1
+            if not reused:
                 info.rebuilt_keys.add(node.key)
 
         def alloc_node(**kw: Any) -> Node:

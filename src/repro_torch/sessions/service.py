@@ -67,6 +67,7 @@ from ..core.change_detector import ChangeDetector
 from ..core.checkpoint import Chipmink, TimeID
 from ..core.graph_cache import GraphCache
 from ..core.store import BaseStore, MemoryStore
+from ..core.trace import span
 from ..core.volatility import FlipTracker
 
 SESSION_NS = "sessions/"
@@ -271,13 +272,14 @@ class SessionService:
         branch, chained to its previous save, through the full
         incremental pipeline.  The wall time of this call is the
         *save stall* — what the serving loop actually blocks for
-        (with ``async_mode`` the body overlaps the next request)."""
+        (with ``async_mode`` the body overlaps the next request): the
+        span ``session.save``."""
         ctx = self.sessions[session_id]
         ck = self._bind(ctx)
-        t0 = _time.perf_counter()
-        tid = ck.save(state, parent=ctx.head, branch=ctx.branch,
-                      **save_kwargs)
-        self.save_stalls.append(_time.perf_counter() - t0)
+        with span("session.save", session=session_id) as sp:
+            tid = ck.save(state, parent=ctx.head, branch=ctx.branch,
+                          **save_kwargs)
+        self.save_stalls.append(sp.seconds)
         ctx.head = tid
         ctx.n_saves += 1
         ctx.last_used = _time.time()

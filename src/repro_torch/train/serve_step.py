@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.trace import span
 from ..models.model import api
 from ..models.transformer import step_cache
 from ..parallel.sharding import is_dtensor
@@ -120,12 +121,13 @@ class DecodeGraph:
         self.graph = graph
 
     def __call__(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-        self.tokens.copy_(tokens)
-        if self.graph is None:
-            self._body()
-        else:
-            self.graph.replay()
-        return self.logits, self.cache
+        with span("decode.step"):
+            self.tokens.copy_(tokens)
+            if self.graph is None:
+                self._body()
+            else:
+                self.graph.replay()
+            return self.logits, self.cache
 
 
 def compile_decode_step(cfg: ArchConfig, params: Dict, cache: Dict, *,

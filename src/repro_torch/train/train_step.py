@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.trace import span
 from ..models.model import api
 from .grad_compress import tree_quantize_dequantize
 from .optimizer import (OptConfig, clip_by_global_norm, is_frozen, opt_init,
@@ -236,30 +237,31 @@ class TrainGraph:
         self.graph = graph
 
     def __call__(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
-        leaves = tree_leaves(state)
-        if len(leaves) != len(self._paths) or any(
-                a is not b for a, (_, b) in zip(leaves, self._paths)):
-            raise ValueError("compile_train_step: a state other than the "
-                             "one the step was compiled over; compile a new "
-                             "step over it")
-        if sorted(batch) != sorted(self.batch):
-            raise ValueError(f"compile_train_step: batch keys "
-                             f"{sorted(batch)}, compiled for "
-                             f"{sorted(self.batch)}")
-        for k, v in batch.items():
-            buf = self.batch[k]
-            if (v.shape, v.dtype, v.device) != (buf.shape, buf.dtype,
-                                                buf.device):
-                raise ValueError(f"compile_train_step: batch {k!r} is "
-                                 f"{v.dtype}{list(v.shape)} on {v.device}, "
-                                 f"compiled for {buf.dtype}"
-                                 f"{list(buf.shape)} on {buf.device}")
-            buf.copy_(v)
-        if self.graph is None:
-            self._body()
-        else:
-            self.graph.replay()
-        return self.state, self.metrics
+        with span("train.step"):
+            leaves = tree_leaves(state)
+            if len(leaves) != len(self._paths) or any(
+                    a is not b for a, (_, b) in zip(leaves, self._paths)):
+                raise ValueError("compile_train_step: a state other than "
+                                 "the one the step was compiled over; "
+                                 "compile a new step over it")
+            if sorted(batch) != sorted(self.batch):
+                raise ValueError(f"compile_train_step: batch keys "
+                                 f"{sorted(batch)}, compiled for "
+                                 f"{sorted(self.batch)}")
+            for k, v in batch.items():
+                buf = self.batch[k]
+                if (v.shape, v.dtype, v.device) != (buf.shape, buf.dtype,
+                                                    buf.device):
+                    raise ValueError(f"compile_train_step: batch {k!r} is "
+                                     f"{v.dtype}{list(v.shape)} on "
+                                     f"{v.device}, compiled for {buf.dtype}"
+                                     f"{list(buf.shape)} on {buf.device}")
+                buf.copy_(v)
+            if self.graph is None:
+                self._body()
+            else:
+                self.graph.replay()
+            return self.state, self.metrics
 
 
 def compile_train_step(step_fn: Callable, state: Dict, example_batch: Dict,

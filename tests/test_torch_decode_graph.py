@@ -61,8 +61,11 @@ from repro_torch.train.tree import tree_map
 from test_torch_checkpoint import to_jax
 from test_torch_models import TOL, f32, pair, tokens
 from test_torch_sessions import fleet, ref_svc
-from test_torch_version import assert_stores_equal, from_torch
+from test_torch_version import (assert_stores_equal, from_torch,  # noqa: F401
+                                reference_stats_block_as_the_port)
 from test_torch_whisper import frames
+
+pytestmark = pytest.mark.usefixtures("reference_stats_block_as_the_port")
 
 #: every family `serve` takes, at the configurations `chip_smoke.py`
 #: phases 9 and 11 serve at full width

@@ -23,8 +23,11 @@ from repro_torch.version import fsck as port_fsck
 from proptest import (base_state, case_rng, snapshot_state,
                       sparse_mutate_state, strip_manifest, tree_equal)
 from test_torch_checkpoint import to_torch
-from test_torch_version import (PairWorkload, assert_stores_equal,
-                                from_torch, results)
+from test_torch_version import (PairWorkload, assert_stores_equal,  # noqa: F401
+                                from_torch, reference_stats_block_as_the_port,
+                                results)
+
+pytestmark = pytest.mark.usefixtures("reference_stats_block_as_the_port")
 
 STORE_STATS = ("pods_written", "pod_bytes_written", "delta_pods_written",
                "delta_bytes_written", "chain_reads", "pods_rematerialized",

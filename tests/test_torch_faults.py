@@ -21,7 +21,10 @@ from repro_torch.version import fsck as port_fsck
 from proptest import base_state, snapshot_state, sparse_mutate_state, \
     tree_equal
 from test_torch_checkpoint import convert, to_jax, to_torch
-from test_torch_version import assert_stores_equal, from_torch, results
+from test_torch_version import (assert_stores_equal, from_torch,  # noqa: F401
+                                reference_stats_block_as_the_port, results)
+
+pytestmark = pytest.mark.usefixtures("reference_stats_block_as_the_port")
 
 PKGS = {"ref": R, "port": P}
 FSCK = {"ref": ref_fsck, "port": port_fsck}

@@ -34,6 +34,10 @@ import pytest
 from repro.launch.serve import serve as ref_serve
 from repro_torch.launch.serve import serve
 
+from test_torch_version import reference_stats_block_as_the_port  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_stats_block_as_the_port")
+
 SNAP_KEYS = ("time_id", "n_dirty_chunks", "pods_written", "n_pods_reused",
              "bytes_written", "n_digest_syncs", "n_gather_syncs",
              "n_corrective_syncs", "n_spec_hits", "n_spec_misses")

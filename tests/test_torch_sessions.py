@@ -43,7 +43,10 @@ from proptest import (EVICT_CRASH_POINTS, base_state, case_rng,
                       tree_equal)
 from test_torch_async import jax_copy
 from test_torch_checkpoint import SYNC_STATS, convert, to_torch
-from test_torch_version import assert_stores_equal, from_torch, results
+from test_torch_version import (assert_stores_equal, from_torch,  # noqa: F401
+                                reference_stats_block_as_the_port, results)
+
+pytestmark = pytest.mark.usefixtures("reference_stats_block_as_the_port")
 
 #: `FleetStats` fields that are timings, not results
 FLEET_TIMINGS = ("p50_save_stall_s", "p99_save_stall_s", "p50_evict_s",
