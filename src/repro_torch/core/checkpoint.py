@@ -198,13 +198,14 @@ TimeID = int
 #: a CAS counter, so concurrent writers never mint the same commit id.
 TID_COUNTER_META_KEY = "tid_counter"
 
-#: stage timers of `save_stats` that a manifest's stats block leaves
-#: out, so that the block holds the reference package's keys (less five,
-#: module docstring) and the two packages' manifests of a save are of
-#: one size
+#: stage timers and counters of `save_stats` that a manifest's stats
+#: block leaves out, so that the block holds the reference package's keys
+#: (less five, module docstring) and the two packages' manifests of a
+#: save are of one size
 SPAN_ONLY_STATS = frozenset({
     "t_slot_wait", "t_digest_call", "t_track", "t_intent",
-    "t_commit_manifest", "t_commit_refcounts", "t_commit_refs"})
+    "t_commit_manifest", "t_commit_refcounts", "t_commit_refs",
+    "n_track_rows", "n_track_rows_built"})
 
 
 class Chipmink:
@@ -651,9 +652,10 @@ class Chipmink:
 
         if self.tracker is not None:
             with span("save.track", stats, "t_track"):
-                active_chunks = [n.key for n in graph.chunk_nodes()
-                                 if "/".join(n.path) in active]
-                self.tracker.observe(graph, report.dirty, active_chunks)
+                chunks, changed = self.tracker.chunk_keys(graph, active)
+                stats["n_track_rows"], stats["n_track_rows_built"] = \
+                    self.tracker.observe(graph, report.dirty, chunks,
+                                         changed_keys=changed)
 
         # podding: reuse the previous assignment verbatim when the graph
         # structure is unchanged (memo locals preserved, §7.3 stability);

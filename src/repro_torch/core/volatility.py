@@ -25,7 +25,8 @@ size/length/__dict__-length):
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, List, Optional, Set
+from itertools import repeat
+from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -186,28 +187,132 @@ class GBMVolatility(VolatilityModel):
 
 
 class FlipTracker:
-    """Historical per-node mutation EMA (feature 9) + training-sample buffer."""
+    """Historical per-node mutation EMA (feature 9) + training-sample buffer.
+
+    The per-key state lives in arrays aligned with the active keys of the
+    last `observe`: the EMA, mirrored into `ema` (which the podding
+    policy and the fused save read), and the static feature rows
+    (features 0–8), which a key keeps across saves while its node is
+    unchanged, as `LGA.prepare` keeps them.  The arrays are re-laid only
+    when the active keys change.
+    """
 
     def __init__(self, beta: float = 0.3):
         self.beta = beta
         self.ema: Dict[str, float] = {}
-        self.samples_X: List[np.ndarray] = []
-        self.samples_y: List[float] = []
+        #: one block of sample rows / labels per observe
+        self._X: List[np.ndarray] = []
+        self._y: List[np.ndarray] = []
+        self._keys: List[str] = []
+        self._index: Dict[str, int] = {}
+        self._ema = np.zeros((0,), dtype=np.float64)
+        self._rows = np.zeros((0, N_FEATURES), dtype=np.float64)
+        #: rows whose features 0–8 are those of the key's current node
+        self._built = np.zeros((0,), dtype=bool)
+        #: leaf key -> (its node at the last `chunk_keys`, its chunk keys)
+        self._leaves: Dict[str, Tuple[Node, List[str]]] = {}
+
+    @property
+    def samples_X(self) -> np.ndarray:
+        """Every sample row observed, (n, N_FEATURES): a save's rows in
+        the order of its active keys."""
+        return (np.concatenate(self._X) if self._X
+                else np.zeros((0, N_FEATURES), dtype=np.float64))
+
+    @property
+    def samples_y(self) -> np.ndarray:
+        """1.0 where the sample's chunk flipped, else 0.0."""
+        return (np.concatenate(self._y) if self._y
+                else np.zeros((0,), dtype=np.float64))
+
+    def chunk_keys(self, graph: ObjectGraph, leaves: Iterable[str]
+                   ) -> Tuple[List[str], Set[str]]:
+        """Keys of the chunks of the leaves named in `leaves`, and those of
+        them whose leaf has another node than at the previous call.
+
+        Nodes are never mutated and an unchanged leaf keeps its node and
+        its chunks' nodes across incremental builds, so a leaf whose node
+        is the one seen last time reuses its keys, and a checkout's fresh
+        graph, a from-scratch build or a re-shaped leaf names its chunks
+        changed."""
+        keys: List[str] = []
+        changed: Set[str] = set()
+        seen: Dict[str, Tuple[Node, List[str]]] = {}
+        for k in sorted(leaves):
+            node = graph.nodes.get(graph.by_key.get(k))
+            if node is None or node.kind != LEAF:
+                continue
+            hit = self._leaves.get(k)
+            if hit is None or hit[0] is not node:
+                hit = (node, [graph.nodes[c].key for c in node.children])
+                changed.update(hit[1])
+            seen[k] = hit
+            keys += hit[1]
+        self._leaves = seen
+        return keys, changed
 
     def observe(self, graph: ObjectGraph, dirty_keys: Iterable[str],
                 active_keys: Optional[Iterable[str]] = None,
-                collect: bool = True) -> None:
-        dirty = set(dirty_keys)
-        keys = set(active_keys) if active_keys is not None else {
-            n.key for n in graph.nodes.values() if n.kind == CHUNK}
-        for key in keys:
-            flipped = 1.0 if key in dirty else 0.0
-            prev = self.ema.get(key, 0.5)
-            self.ema[key] = (1 - self.beta) * prev + self.beta * flipped
-            if collect and key in graph.by_key:
-                node = graph.nodes[graph.by_key[key]]
-                self.samples_X.append(node_features(node, graph, self.ema))
-                self.samples_y.append(flipped)
+                collect: bool = True,
+                changed_keys: Optional[Set[str]] = None) -> Tuple[int, int]:
+        """Update the EMA of every active key (every chunk when
+        `active_keys` is None) and collect a sample row for each that has
+        a node in `graph`.
+
+        `changed_keys` names the keys whose node changed since the
+        previous observe; every other key seen before keeps its features
+        0–8.  None rebuilds every row.  Returns the number of rows
+        observed and of rows whose features 0–8 were built."""
+        if active_keys is None:
+            active_keys = [n.key for n in graph.chunk_nodes()]
+        elif not isinstance(active_keys, list):
+            active_keys = list(active_keys)
+        if active_keys != self._keys:
+            self._relayout(active_keys)
+        keys, index, by_key = self._keys, self._index, graph.by_key
+        n = len(keys)
+        has = np.fromiter(map(by_key.__contains__, keys), dtype=bool,
+                          count=n)
+        if changed_keys is None:
+            build = has
+        else:
+            build = has & ~self._built
+            hit = [i for i in map(index.get, changed_keys) if i is not None]
+            build[hit] = has[hit]
+        rows = self._rows
+        for i in np.flatnonzero(build).tolist():
+            rows[i] = static_node_features(graph.nodes[by_key[keys[i]]])
+        self._built = has
+        flipped = np.zeros((n,), dtype=np.float64)
+        flipped[[i for i in map(index.get, dirty_keys) if i is not None]] = 1.0
+        # the reference's per-key (1 - beta) * prev + beta * flipped: the
+        # same IEEE operations in the same order, so the same bits
+        ema = (1 - self.beta) * self._ema + self.beta * flipped
+        self._ema = ema
+        self.ema.update(zip(keys, ema.tolist()))
+        if collect:
+            X = rows[has]
+            X[:, 9] = ema[has]
+            self._X.append(X)
+            self._y.append(flipped[has])
+        return int(has.sum()), int(build.sum())
+
+    def _relayout(self, active_keys: List[str]) -> None:
+        """Align the arrays with new active keys: a key seen before keeps
+        its row, a key new to the tracker gets its EMA from `ema`."""
+        keys = list(dict.fromkeys(active_keys))
+        n = len(keys)
+        old = np.fromiter(map(self._index.get, keys, repeat(-1)),
+                          dtype=np.intp, count=n)
+        kept = old >= 0
+        rows = np.zeros((n, N_FEATURES), dtype=np.float64)
+        rows[kept] = self._rows[old[kept]]
+        built = np.zeros((n,), dtype=bool)
+        built[kept] = self._built[old[kept]]
+        self._keys, self._rows, self._built = keys, rows, built
+        self._index = dict(zip(keys, range(n)))
+        self._ema = np.fromiter(map(self.ema.get, keys, repeat(0.5)),
+                                dtype=np.float64, count=n)
 
     def predicted(self, threshold: float = 0.25) -> Set[str]:
         """Chunk keys whose flip EMA exceeds `threshold` — the speculative
@@ -217,6 +322,7 @@ class FlipTracker:
 
     def fit_gbm(self, **kw) -> GBMVolatility:
         model = GBMVolatility(**kw)
-        if self.samples_X:
-            model.fit(np.stack(self.samples_X), np.asarray(self.samples_y))
+        y = self.samples_y
+        if len(y):
+            model.fit(self.samples_X, y)
         return model
