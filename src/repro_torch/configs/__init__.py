@@ -1,6 +1,10 @@
-"""Architecture registry: ``get_config("<arch-id>")`` / ``--arch`` ids."""
-from .base import (SHAPES, ArchConfig, EncoderSpec, MoESpec, RGLRUSpec,
-                   SSMSpec, ShapeCell, VLMSpec, applicable_shapes,
+"""Architecture registry: ``get_config("<arch-id>")`` / ``--arch`` ids.
+
+`ARCHS` holds the architectures the reference package shares, one each;
+`PORT_ARCHS` those of the port alone, which `get_config` also serves."""
+from .ai21_jamba2_mini import CONFIG as AI21_JAMBA2_MINI
+from .base import (SHAPES, ArchConfig, EncoderSpec, JambaConfig, MoESpec,
+                   RGLRUSpec, SSMSpec, ShapeCell, VLMSpec, applicable_shapes,
                    LONG_CONTEXT_OK)
 from .falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from .granite_moe_3b_a800m import CONFIG as GRANITE_MOE_3B_A800M
@@ -22,7 +26,12 @@ ARCHS = {
 }
 
 
+PORT_ARCHS = {c.arch_id: c for c in [AI21_JAMBA2_MINI]}
+
+
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
-    return ARCHS[arch_id]
+    cfg = ARCHS.get(arch_id) or PORT_ARCHS.get(arch_id)
+    if cfg is None:
+        raise KeyError(f"unknown arch {arch_id!r}; have "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
+    return cfg

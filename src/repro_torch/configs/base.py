@@ -8,7 +8,7 @@ config used by CPU smoke tests.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import ClassVar, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +88,18 @@ class ArchConfig:
     #                             between blocks (kills the per-layer f32
     #                             activation all-gathers of the baseline)
 
+    # family constants, not fields (so `dataclasses.asdict` of every
+    # config the reference package shares stays the reference's)
+    rope: ClassVar[bool] = True            # rotary embedding in attention
+    embed_scale: ClassVar[bool] = True     # input embedding x sqrt(d_model)
+    ssm_inner_norms: ClassVar[bool] = False    # RMSNorms on Mamba's dt, B, C
+    router_renormalize: ClassVar[bool] = True  # top-k weights sum to one
+
+    def held_experts(self) -> Optional[Tuple[int, int]]:
+        """(first, count) of the experts this device holds of each MoE
+        layer, which routes over all ``moe.n_experts``; None: all."""
+        return None
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -143,6 +155,48 @@ class ArchConfig:
             small["vlm"] = VLMSpec(n_patches=16, grid=(4, 4),
                                    mrope_sections=(4, 6, 6))
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class JambaConfig(ArchConfig):
+    """Jamba's hybrid decoder [arXiv:2403.19887; HF `JambaConfig`]: layer
+    i mixes by attention where ``i % attn_period == attn_offset`` and by
+    Mamba-1 elsewhere; its FFN is routed experts where ``i %
+    expert_period == expert_offset`` and one SwiGLU elsewhere.  Attention
+    has no positional encoding, the input embedding is not scaled, Mamba
+    normalises dt, B and C, and the router's top-k softmax weights are
+    not renormalised.  Under expert parallelism a device holds experts
+    ``experts_held = (first, count)`` of each MoE layer: the router keeps
+    every expert, and the layer adds only its own experts' part."""
+    attn_period: int = 8
+    attn_offset: int = 4
+    expert_period: int = 2
+    expert_offset: int = 1
+    experts_held: Optional[Tuple[int, int]] = None   # None: every expert
+
+    rope: ClassVar[bool] = False
+    embed_scale: ClassVar[bool] = False
+    ssm_inner_norms: ClassVar[bool] = True
+    router_renormalize: ClassVar[bool] = False
+
+    def held_experts(self) -> Optional[Tuple[int, int]]:
+        return self.experts_held
+
+    def layer_plan(self) -> List[Tuple[str, str]]:
+        return [("attn" if i % self.attn_period == self.attn_offset
+                 else "mamba",
+                 "moe" if i % self.expert_period == self.expert_offset
+                 else self.mlp)
+                for i in range(self.n_layers)]
+
+    def reduced(self) -> "JambaConfig":
+        """One whole period of layers, GQA, 8 routed experts of which 4
+        are held, the Mamba inner norms: every kind of layer at a tiny
+        width."""
+        return dataclasses.replace(
+            ArchConfig.reduced(self), n_layers=self.attn_period,
+            n_kv_heads=2, experts_held=(0, 4),
+            moe=MoESpec(n_experts=8, top_k=2, expert_ff=64))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -85,6 +85,14 @@ class ChangeReport:
     n_spec_hits: int = 0               # dirty chunks whose bytes were fetched
     n_spec_misses: int = 0             # dirty chunks needing a corrective gather
     fused_rows: int = 0                # slot rows dirty-resolved on device
+    #: chunks and dirty chunks of the graph by leaf group, the last
+    #: component of the leaf's path ("k", "v", "conv", "ssm", ...)
+    chunks_by_group: Dict[str, int] = dataclasses.field(default_factory=dict)
+    dirty_by_group: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: per digested row, whether its chunk is dirty; the first row of
+    #: each digested leaf (`kbatch.DigestResult.leaf_rows`)
+    row_changed: Optional[np.ndarray] = None
+    leaf_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class ChangeDetector:
@@ -230,7 +238,8 @@ class ChangeDetector:
         # be digested now; their already-seen siblings still inherit).
         digest_leaves: List[Node] = []
         active_leaf_set: Set[str] = set()
-        for leaf in graph.leaf_nodes():
+        leaves = list(graph.leaf_nodes())
+        for leaf in leaves:
             lkey = leaf.key
             if active_leaf_paths is None or lkey in active_leaf_paths:
                 digest_leaves.append(leaf)
@@ -266,6 +275,8 @@ class ChangeDetector:
                 changed[sub] = (res.mat[sub]
                                 != self._table[prev_rows[have]]).any(axis=1)
         buf = res.mat.tobytes()
+        chunks_by_group, dirty_by_group = _by_group(leaves, res.leaf_rows,
+                                                    changed)
 
         # 3. assemble the new digest table + dirty set, walking chunk
         # nodes once.  Active chunks take the fresh digest; inactive
@@ -327,4 +338,27 @@ class ChangeDetector:
                             n_syncs=res.n_syncs, payload=payload,
                             n_spec_hits=hits,
                             n_spec_misses=len(dirty) - hits,
-                            fused_rows=fused_rows)
+                            fused_rows=fused_rows,
+                            chunks_by_group=chunks_by_group,
+                            dirty_by_group=dirty_by_group,
+                            row_changed=changed, leaf_rows=res.leaf_rows)
+
+
+def _by_group(leaves: List[Node], leaf_rows: Dict[str, int],
+              changed: np.ndarray) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """Chunks and dirty chunks of each leaf group (a leaf path's last
+    component), counted per leaf from the rows' dirty flags: a digested
+    leaf's dirty chunks are its rows flagged `changed`, and a leaf that
+    was not digested inherits every digest, so none of its chunks is
+    dirty."""
+    chunks: Dict[str, int] = {}
+    dirty: Dict[str, int] = {}
+    for leaf in leaves:
+        group = leaf.path[-1] if leaf.path else ""
+        n = len(leaf.children)
+        r0 = leaf_rows.get(leaf.key)
+        d = 0 if r0 is None or not n else int(
+            np.count_nonzero(changed[r0:r0 + n]))
+        chunks[group] = chunks.get(group, 0) + n
+        dirty[group] = dirty.get(group, 0) + d
+    return chunks, dirty

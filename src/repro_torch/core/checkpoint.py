@@ -168,7 +168,7 @@ from __future__ import annotations
 
 import hashlib
 import warnings
-from typing import Any, Dict, Iterable, List, Optional, Set
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import msgpack
 import numpy as np
@@ -177,7 +177,7 @@ import torch
 from ..kernels.ops import resolve_device, snapshot_tensors
 from .active_filter import ActiveVariableFilter
 from .async_saver import AsyncSaver
-from .change_detector import ChangeDetector, pack_digest_table
+from .change_detector import ChangeDetector, ChangeReport, pack_digest_table
 from .delta import DeltaPolicy, encode_pod_delta
 from .faults import RetryPolicy, call_with_retries
 from .graph import CHUNK, ObjectGraph, build_graph
@@ -205,7 +205,52 @@ TID_COUNTER_META_KEY = "tid_counter"
 SPAN_ONLY_STATS = frozenset({
     "t_slot_wait", "t_digest_call", "t_track", "t_intent",
     "t_commit_manifest", "t_commit_refcounts", "t_commit_refs",
-    "n_track_rows", "n_track_rows_built"})
+    "n_track_rows", "n_track_rows_built", "chunks_by_group",
+    "dirty_by_group", "written_chunk_bytes", "clean_written_bytes"})
+
+
+def written_chunk_bytes(graph: ObjectGraph, asg: PodAssignment,
+                        report: ChangeReport,
+                        stored: Sequence[Tuple[int, bool]]) -> Tuple[int, int]:
+    """(payload bytes of the chunks the stored pods hold, those of them
+    whose chunk is clean): the clean bytes a save drags into the pods its
+    dirty chunks make it write.  A pod stored as a delta holds its dirty
+    chunks alone.  Array work over the assignment's chunk table (laid
+    out once per assignment) and the detector's per-row dirty flags;
+    nothing here runs per chunk."""
+    if not stored or report.row_changed is None:
+        return 0, 0
+    if asg.chunk_table is None:
+        asg.chunk_table = _chunk_table(graph, asg)
+    leaves, n_pods, pod, leaf, ci, size = asg.chunk_table
+    # per pod id: 0 not stored, 1 stored whole, 2 stored as a delta
+    how = np.zeros(n_pods, np.int8)
+    how[np.fromiter((p for p, _ in stored), np.int64, len(stored))] = 1
+    how[np.fromiter((p for p, d in stored if d), np.int64)] = 2
+    at = how[pod]
+    sel = at > 0
+    start = np.fromiter((report.leaf_rows.get(k, -1) for k in leaves),
+                        np.int64, len(leaves))
+    r0, c, nbytes = start[leaf[sel]], ci[sel], size[sel]
+    dirty = np.zeros(len(c), dtype=bool)
+    have = r0 >= 0                      # a leaf not digested is clean
+    dirty[have] = report.row_changed[r0[have] + c[have]]
+    kept = dirty | (at[sel] == 1)
+    return int(nbytes[kept].sum()), int(nbytes[kept & ~dirty].sum())
+
+
+def _chunk_table(graph: ObjectGraph, asg: PodAssignment) -> Tuple:
+    """(leaf paths, 1 + the largest pod id, then per chunk node: its pod
+    id, its leaf's index in those paths, its chunk index, its bytes)."""
+    leaves: Dict[str, int] = {}
+    rows: List[Tuple[int, int, int, int]] = []
+    for nid, pid in asg.node_pod.items():
+        node = graph.node(nid)
+        if node.kind == CHUNK:
+            li = leaves.setdefault("/".join(node.path), len(leaves))
+            rows.append((pid, li, node.chunk_index, node.size))
+    cols = np.asarray(rows, np.int64).reshape(-1, 4).T
+    return (list(leaves), max(asg.pods) + 1, *cols)
 
 
 class Chipmink:
@@ -645,6 +690,8 @@ class Chipmink:
                                           stats=stats)
             stats["n_chunks"] = len(report.digests)
             stats["n_dirty_chunks"] = len(report.dirty)
+            stats["chunks_by_group"] = report.chunks_by_group
+            stats["dirty_by_group"] = report.dirty_by_group
         stats["n_digest_syncs"] = report.n_syncs
         stats["n_spec_predicted"] = len(spec) if spec else 0
         stats["n_spec_hits"] = report.n_spec_hits
@@ -803,6 +850,7 @@ class Chipmink:
             n_delta_pods = 0
             chain_depth_max = 0
             t_delta = 0.0
+            stored: List[Tuple[int, bool]] = []   # (pid, as a delta)
             for pid, pod, dig_hex, digest in to_write:
                 data = serialize_pod(pod, graph, asg, chunk_bytes_of)
 
@@ -852,6 +900,7 @@ class Chipmink:
                 n_retries += nr
                 if fresh:
                     written += 1
+                    stored.append((pid, delta_blob is not None))
                     if delta_blob is not None:
                         # the manifest records chain structure only for
                         # pods this commit actually stored in delta form (a
@@ -862,6 +911,8 @@ class Chipmink:
                         chain_depth_max = max(chain_depth_max, delta_depth)
                 else:
                     aliased += 1              # disk-level synonym
+            stats["written_chunk_bytes"], stats["clean_written_bytes"] = \
+                written_chunk_bytes(graph, asg, report, stored)
         stats["n_retries"] = n_retries
         stats["pods_written"] = written
         stats["pods_aliased"] = aliased

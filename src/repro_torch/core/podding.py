@@ -49,6 +49,10 @@ class PodAssignment:
     memo: GlobalMemoSpace
     root_pod: int
     edges: Set[Tuple[int, int]]           # PodGraph E_p (directed)
+    #: every chunk node's pod, leaf, chunk index and bytes as arrays,
+    #: laid out when first needed (`checkpoint.written_chunk_bytes`)
+    chunk_table: Optional[Tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def pod_of_key(self, graph: ObjectGraph, key: str) -> int:
         return self.node_pod[graph.by_key[key]]

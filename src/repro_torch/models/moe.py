@@ -2,6 +2,13 @@
 (GShard-style dense one-hot einsums) + optional shared expert.  The port
 of `repro.models.moe`.
 
+Under expert parallelism a device holds a contiguous share of the
+experts (`moe_ffn`'s ``held``): it routes every token over all of them,
+and computes only its own experts' part of the result (the other
+devices' parts are left out, not stood in for).  Jamba's router does not
+renormalise its top-k weights (``renormalize=False``).  Both are
+arguments and not `MoEConfig` fields, whose fields are the reference's.
+
 Dispatch and combine are the reference's dense one-hot tensors (G, n, X,
 C): a token's j-th choice takes the next free slot of its expert in its
 group, and a choice past the capacity C is dropped.  Every shape is
@@ -20,7 +27,7 @@ Two points where torch and JAX differ are made explicit:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,15 +66,18 @@ def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def router_dispatch(logits: torch.Tensor, cfg: MoEConfig
+def router_dispatch(logits: torch.Tensor, cfg: MoEConfig,
+                    renormalize: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits: (G, n, X) -> dispatch (G, n, X, C) bf16 one-hot, combine
-    (G, n, X, C) bf16 weights, aux load-balancing loss (0-d float32)."""
+    (G, n, X, C) bf16 weights, aux load-balancing loss (0-d float32).
+    With `renormalize` a token's top-k weights are scaled to sum to one."""
     G, n, X = logits.shape
     C = _capacity(n, cfg)
     probs = torch.softmax(logits.float(), dim=-1)
     top_w, top_idx = top_k(probs, cfg.top_k)               # (G, n, k)
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    if renormalize:
+        top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
 
     i32 = torch.int32
     counts = torch.zeros((G, X), dtype=i32, device=logits.device)
@@ -94,9 +104,13 @@ def router_dispatch(logits: torch.Tensor, cfg: MoEConfig
     return dispatch, combine.to(torch.bfloat16), aux
 
 
-def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig
+def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
+            held: Optional[Tuple[int, int]] = None, renormalize: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, E) -> (y, aux_loss, expert_token_counts (X,) float32).
+    With `held` = (first, count) the expert weights are those experts'
+    alone: routing runs over all ``cfg.n_experts``, and y and the counts
+    are the held experts' part.
 
     The per-expert token counts feed Chipmink's active-variable filter:
     experts with zero routed tokens this window received no gradient, so
@@ -110,7 +124,12 @@ def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig
     tokens = reshape(reshape(x, B, S // n, n, E), G, n, E) if S % n == 0 \
         else reshape(x, G, n, E)
     logits = dense(tokens, params["router"])               # (G, n, X) f32
-    dispatch, combine, aux = router_dispatch(logits, cfg)
+    dispatch, combine, aux = router_dispatch(logits, cfg, renormalize)
+    if held is not None:
+        # this device's experts: their slots of the routing over all
+        lo, n_held = held
+        dispatch = dispatch[:, :, lo:lo + n_held]
+        combine = combine[:, :, lo:lo + n_held]
     # dispatch: (G, n, X, C) x (G, n, E) -> (X, G, C, E); the X-dim
     # constraint turns the reshard into the expert all-to-all
     expert_in = einsum("gnxc,gne->xgce", dispatch,

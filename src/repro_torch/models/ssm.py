@@ -10,6 +10,10 @@ does.  The C-projection runs inside the chunk loop, so the (B, chunk, E,
 N) hidden states stay transient.  A cumulative product with a division
 would be shorter but underflows: Ā is a product of exp(dt·A) < 1.
 
+Jamba's mixer normalises dt, B and C with RMSNorms after x_proj
+(`SSMConfig.inner_norms`, in `_ssm_coeffs`, which the block and the
+decode step share).
+
 Decode is a single state update; `mamba_decode_step` returns the new
 conv window and SSM state, and the caller (`transformer.decode_step`)
 copies them into the cache's own tensors.
@@ -23,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import einsum
-from .layers import dense, silu, softplus
+from .layers import dense, rms_norm, silu, softplus
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +37,7 @@ class SSMConfig:
     d_conv: int = 4
     dt_rank: int = 256
     chunk: int = 64        # time chunk for the parallel scan
+    inner_norms: bool = False  # Jamba: RMSNorms of dt, B and C
 
 
 def _along(t: torch.Tensor, dim: int, sl: slice) -> torch.Tensor:
@@ -84,6 +89,10 @@ def _ssm_coeffs(params: Dict, x: torch.Tensor, cfg: SSMConfig):
     bl = dense(x, params["x_proj"])                   # (B,L,dt_rank+2N)
     R, N = cfg.dt_rank, cfg.d_state
     dt, Bc, Cc = torch.split(bl, [R, N, bl.shape[-1] - R - N], dim=-1)
+    if cfg.inner_norms:
+        dt = rms_norm(dt, params["dt_norm"])
+        Bc = rms_norm(Bc, params["b_norm"])
+        Cc = rms_norm(Cc, params["c_norm"])
     dt = softplus(dense(dt, params["dt_proj"])
                   + params["dt_bias"].to(x.dtype))    # (B,L,E)
     A = -torch.exp(params["A_log"].float())           # (E,N)

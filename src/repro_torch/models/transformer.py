@@ -95,6 +95,8 @@ def _ffn_defs(p: Tuple[str, ...], cfg: ArchConfig, kind: str) -> ParamDefs:
     if kind == "moe":
         m = cfg.moe
         X, F = m.n_experts, m.expert_ff
+        held = cfg.held_experts()
+        Xh = held[1] if held else X       # experts of this device
         if cfg.ep_axis == "data":
             ax_in = ("experts_dp", None, "ffn")
             ax_out = ("experts_dp", "ffn", None)
@@ -104,9 +106,9 @@ def _ffn_defs(p: Tuple[str, ...], cfg: ArchConfig, kind: str) -> ParamDefs:
         defs: ParamDefs = {
             p + ("router",): ParamDef((E, X), torch.float32,
                                       ("embed", None)),
-            p + ("w_gate",): ParamDef((X, E, F), None, ax_in),
-            p + ("w_up",): ParamDef((X, E, F), None, ax_in),
-            p + ("w_down",): ParamDef((X, F, E), None, ax_out),
+            p + ("w_gate",): ParamDef((Xh, E, F), None, ax_in),
+            p + ("w_up",): ParamDef((Xh, E, F), None, ax_in),
+            p + ("w_down",): ParamDef((Xh, F, E), None, ax_out),
         }
         if m.n_shared:
             Fs = F * m.n_shared
@@ -128,7 +130,14 @@ def _mamba_defs(p: Tuple[str, ...], cfg: ArchConfig) -> ParamDefs:
     Ei = s.expand * E
     K, N, R = s.d_conv, s.d_state, s.dt_rank
     f32 = torch.float32
+    defs: ParamDefs = {}
+    if cfg.ssm_inner_norms:
+        # Jamba's RMSNorms of dt, B and C, stored as offsets from 1
+        defs = {p + ("dt_norm",): ParamDef((R,), f32, (None,), "zeros"),
+                p + ("b_norm",): ParamDef((N,), f32, (None,), "zeros"),
+                p + ("c_norm",): ParamDef((N,), f32, (None,), "zeros")}
     return {
+        **defs,
         p + ("in_proj",): ParamDef((E, 2 * Ei), None, ("embed", "inner")),
         p + ("conv_w",): ParamDef((K, Ei), None, (None, "inner")),
         p + ("conv_b",): ParamDef((Ei,), None, ("inner",), "zeros"),
@@ -206,7 +215,8 @@ def _window(cfg: ArchConfig, mixer: str) -> Optional[int]:
 def _ssm_cfg(cfg: ArchConfig) -> SSMConfig:
     s = cfg.ssm
     return SSMConfig(d_inner=s.expand * cfg.d_model, d_state=s.d_state,
-                     d_conv=s.d_conv, dt_rank=s.dt_rank, chunk=s.chunk)
+                     d_conv=s.d_conv, dt_rank=s.dt_rank, chunk=s.chunk,
+                     inner_norms=cfg.ssm_inner_norms)
 
 
 def _moe_cfg(cfg: ArchConfig, n_tokens: int) -> MoEConfig:
@@ -230,7 +240,9 @@ def _ffn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
         return gelu_mlp(x, params["w_up"], params["b_up"], params["w_down"],
                         params["b_down"]), {}
     B, S, _ = x.shape
-    y, aux_loss, counts = moe_ffn(x, params, _moe_cfg(cfg, B * S))
+    y, aux_loss, counts = moe_ffn(x, params, _moe_cfg(cfg, B * S),
+                                  held=cfg.held_experts(),
+                                  renormalize=cfg.router_renormalize)
     return y, {"moe_aux": aux_loss, "expert_counts": counts}
 
 
@@ -260,7 +272,8 @@ def _attn_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                 ) -> torch.Tensor:
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
-    q, k = _rotate(q, k, cfg, positions, mrope_positions)
+    if cfg.rope:
+        q, k = _rotate(q, k, cfg, positions, mrope_positions)
     # sequence-parallel attention: queries' S over `model`, kv replicated
     q = constrain(q, ("batch", "seq_model", None, None))
     k = constrain(k, ("batch", None, None, None))
@@ -356,10 +369,12 @@ def _decode_recurrent(params: Dict, x: torch.Tensor, lcache: Dict,
 def embed_tokens(params: Dict, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     """Rows of the embedding, in bf16, times sqrt(d_model) rounded to bf16
-    (the reference multiplies two bf16 values)."""
-    x = embedding(tokens, params["embed"])
-    return x.to(torch.bfloat16) * round_to(math.sqrt(cfg.d_model),
-                                           torch.bfloat16)
+    (the reference multiplies two bf16 values) where the family scales
+    them."""
+    x = embedding(tokens, params["embed"]).to(torch.bfloat16)
+    if not cfg.embed_scale:
+        return x
+    return x * round_to(math.sqrt(cfg.d_model), torch.bfloat16)
 
 
 def logits_from(params: Dict, x: torch.Tensor,
@@ -572,7 +587,10 @@ def init_cache(cfg: ArchConfig, B: int, T: int, *, device: Any) -> Dict:
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B, 1) -> (logits (B, V), cache).  The
-    cache's state tensors are updated in place; ``pos`` is replaced."""
+    cache's state tensors are updated in place; ``pos`` is replaced.  A
+    step at ``pos`` 0 begins a sequence: recurrent layers start it from a
+    zero conv window and state, as attention attends to slot 0 alone, so
+    a cache can serve the next sequence without being cleared."""
     pos = cache["pos"]
     x = constrain(embed_tokens(params, tokens, cfg), ("batch", None, None))
     new_layers: Dict[str, Dict] = {}
@@ -583,13 +601,16 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         if mixer in ("attn", "attn_local"):
             h = _decode_attn(lp["attn"], h, lc, pos, cfg)
         else:
+            key = "ssm" if mixer == "mamba" else "lru"
+            # zeros where the sequence begins (a where, not a product: a
+            # state's NaN would survive a multiply by nought)
+            last = {k: torch.where(pos == 0, 0.0, lc[k])
+                    for k in ("conv", key)}
             if mixer == "mamba":
                 h, conv, state = mamba_decode_step(
-                    lp["mamba"], h, lc["conv"], lc["ssm"], _ssm_cfg(cfg))
-                key = "ssm"
+                    lp["mamba"], h, last["conv"], last["ssm"], _ssm_cfg(cfg))
             else:
-                h, conv, state = _decode_recurrent(lp["rec"], h, lc, cfg)
-                key = "lru"
+                h, conv, state = _decode_recurrent(lp["rec"], h, last, cfg)
             # the new window and state are fresh tensors (not views of
             # the cache), so the copies read nothing they overwrite
             lc["conv"].copy_(conv)
@@ -620,10 +641,10 @@ def _decode_attn(params: Dict, x: torch.Tensor, lcache: Dict,
                  pos: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg)
-    if cfg.vlm is not None:
+    if cfg.rope and cfg.vlm is not None:
         # text regime in decode: all three streams share the position
         q, k = _rotate(q, k, cfg, None, pos.expand(3, B, 1))
-    else:
+    elif cfg.rope:
         q, k = _rotate(q, k, cfg, pos.expand(B, 1), None)
     o = ring_attend(q, k, v, lcache, pos)
     return dense(reshape(o, B, 1, cfg.n_heads * cfg.hd), params["wo"])
