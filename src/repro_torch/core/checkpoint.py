@@ -206,7 +206,8 @@ SPAN_ONLY_STATS = frozenset({
     "t_slot_wait", "t_digest_call", "t_track", "t_intent",
     "t_commit_manifest", "t_commit_refcounts", "t_commit_refs",
     "n_track_rows", "n_track_rows_built", "chunks_by_group",
-    "dirty_by_group", "written_chunk_bytes", "clean_written_bytes"})
+    "dirty_by_group", "written_chunk_bytes", "clean_written_bytes",
+    "n_refcount_coded", "n_refcount_whole"})
 
 
 def written_chunk_bytes(graph: ObjectGraph, asg: PodAssignment,
@@ -960,7 +961,10 @@ class Chipmink:
                     if self.refcounts is not None:
                         with span("save.commit.refcounts", stats,
                                   "t_commit_refcounts"):
-                            self.refcounts.record_commit(time_id, manifest)
+                            coded, whole = self.refcounts.record_commit(
+                                time_id, manifest)
+                            stats["n_refcount_coded"] = coded
+                            stats["n_refcount_whole"] = whole
                     with span("save.commit.refs", stats, "t_commit_refs"):
                         self.versions.record(time_id, parent, branch=branch)
 

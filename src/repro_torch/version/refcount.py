@@ -53,6 +53,20 @@ Maintenance protocol (crash ordering is load-bearing):
     repair, and `Chipmink.gc(full=True)` rebuilds it after a real
     mark-and-sweep (which bypasses the index by design — it remains the
     oracle the refcount path is tested bit-identical against).
+  * A commit codes what it changes, not the store.  Every index on one
+    store object in this process shares a memo of the blob this process
+    last read or wrote there and the state it decodes to.  A mutation
+    that reads that blob back (the same object, else the same bytes)
+    decodes nothing; it packs the `counts` entries it touched and joins
+    them with slices of the memo's blob, and packs `tids`, `children`
+    and `chains` whole.  The bytes are those `_encode` gives, which stays
+    the oracle.  Any other blob (a peer process's, a torn one, fsck's
+    rebuild, a first contact) decodes as before and re-seeds the memo; a
+    lost CAS or an error mid-mutation drops it, since the state was
+    changed in place for a blob that never landed.  The memo's lock is
+    held from the read of the blob to the end of its CAS, so two
+    indexes on one store (a pool's podding threads) never change the
+    shared state at once; across processes the CAS alone composes.
 
 Concurrency: mutations are read-modify-CAS loops (the `LeaseManager`
 pattern), so concurrent writers on one store compose.  The *reclaim*
@@ -63,10 +77,13 @@ serialize reclaim against their own savers instead.
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from collections import Counter
-from typing import Any, Dict, Iterable, List, Optional, Set
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import msgpack
+import numpy as np
 
 from ..core.lease import Lease, LeaseManager
 from ..core.store import BaseStore
@@ -116,15 +133,208 @@ def _scan_state(store: BaseStore) -> Dict[str, Any]:
             "children": dict(children), "chains": chains}
 
 
+#: the outer map's keys, packed
+_TIDS, _COUNTS, _CHILDREN, _CHAINS = (
+    msgpack.packb(k) for k in ("tids", "counts", "children", "chains"))
+
+
+def _map_header(n: int) -> bytes:
+    """msgpack's header of an `n`-entry map: fixmap, map 16 or map 32."""
+    if n < 16:
+        return bytes((0x80 | n,))
+    if n < 0x10000:
+        return b"\xde" + n.to_bytes(2, "big")
+    return b"\xdf" + n.to_bytes(4, "big")
+
+
+def _head(state: Dict[str, Any], n_counts: int) -> bytes:
+    """The encoded index up to its first `counts` entry."""
+    return (b"\x84" + _TIDS + msgpack.packb(sorted(state["tids"]))
+            + _COUNTS + _map_header(n_counts))
+
+
+def _tail(state: Dict[str, Any]) -> bytes:
+    """The encoded index after its last `counts` entry."""
+    ch, chains = state["children"], state["chains"]
+    return (_CHILDREN
+            + msgpack.packb({str(t): ch[t] for t in sorted(ch)},
+                            use_bin_type=True)
+            + _CHAINS
+            + msgpack.packb({d: chains[d] for d in sorted(chains)},
+                            use_bin_type=True))
+
+
+def _key_array(keys: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """`keys` as an array of ASCII bytes, in the order of the strs, and
+    each key's length.  A key outside ASCII, or holding a NUL (numpy's
+    padding), raises ValueError: the commit then encodes whole."""
+    joined = "".join(keys).encode("ascii")
+    if b"\x00" in joined:
+        raise ValueError("a key holds NUL")
+    kl = np.fromiter(map(len, keys), np.int64, len(keys))
+    if len(keys) and kl.min() == kl.max() > 0:     # digests: one width
+        return np.frombuffer(joined, f"S{kl[0]}"), kl
+    return np.array(keys, "S"), kl
+
+
+def _entry_nbytes(kl: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Bytes of each packed `counts` entry, a str key of `kl` bytes and
+    the int `v`, each in msgpack's smallest form."""
+    return (kl + np.select([kl < 32, kl < 0x100, kl < 0x10000], [1, 2, 3], 5)
+            + np.select([(v >= -32) & (v < 0x80), (v >= -0x80) & (v < 0x100),
+                         (v >= -0x8000) & (v < 0x10000),
+                         (v >= -2**31) & (v < 2**32)], [1, 2, 3, 5], 9))
+
+
+def _n_entries(state: Dict[str, Any]) -> int:
+    return sum(len(state[k]) for k in ("tids", "counts", "children",
+                                       "chains"))
+
+
+class _Memo:
+    """The index blob this process last read or wrote on one store, the
+    state it decodes to, and where its `counts` entries lie: `keys` in
+    canonical order and `offs`, each entry's byte offset in `blob` and
+    then the end of the last (None where `lay_out` could not size them).
+    Shared by every `RefcountIndex` on the store; `lock` is held from a
+    read of the blob to the end of its CAS."""
+
+    def __init__(self) -> None:
+        self.lock = threading.RLock()
+        self.drop()
+
+    def drop(self) -> None:
+        self.blob: Optional[bytes] = None
+        self.state: Optional[Dict[str, Any]] = None
+        self.keys: Optional[np.ndarray] = None
+        self.offs: Optional[np.ndarray] = None
+
+    def holds(self, blob: Optional[bytes]) -> bool:
+        """Whether `blob`, just read, is the one the memo describes (on
+        `MemoryStore` the same object, which `==` answers unread)."""
+        return self.blob is not None and blob == self.blob
+
+    def seed(self, blob: bytes, state: Dict[str, Any],
+             keys: Optional[np.ndarray] = None,
+             offs: Optional[np.ndarray] = None) -> None:
+        """Hold `blob` and `state`; where the layout is not given, find
+        it."""
+        self.blob, self.state, self.keys, self.offs = blob, state, keys, offs
+        if keys is None:
+            self.lay_out()
+
+    def lay_out(self) -> None:
+        """Find where each `counts` entry lies in `blob` from `state`
+        (which `blob` encodes).  None where the sizes do not add up to
+        the blob's, as for keys or values other than str and int: the
+        next commit then encodes whole."""
+        state = self.state
+        counts = state["counts"]
+        try:
+            keys = sorted(counts)
+            karr, kl = _key_array(keys)
+            lens = _entry_nbytes(kl, np.fromiter(
+                (counts[k] for k in keys), np.int64, len(keys)))
+        except (TypeError, ValueError, OverflowError):
+            return
+        offs = np.empty(len(keys) + 1, np.int64)
+        offs[0] = len(_head(state, len(keys)))
+        np.cumsum(lens, out=offs[1:])
+        offs[1:] += offs[0]
+        if int(offs[-1]) + len(_tail(state)) == len(self.blob):
+            self.keys, self.offs = karr, offs
+
+    def splice(self, state: Dict[str, Any],
+               touched: Dict[str, Optional[int]]
+               ) -> Tuple[bytes, np.ndarray, np.ndarray, int]:
+        """The encoding of `state`, the memo's state after a mutation
+        that changed no `counts` entry outside `touched` (its keys in
+        sorted order, each with its new count or None where it went):
+        the untouched entries as slices of `blob`, the touched ones
+        packed afresh, `tids`, `children` and `chains` packed whole.
+        Returns it with its `keys`, `offs` and the entries packed."""
+        K, O, n = self.keys, self.offs, len(self.keys)
+        m = len(touched)
+        T, tkl = _key_array(list(touched))
+        if T.itemsize != K.itemsize:    # one width for both
+            w = f"S{max(T.itemsize, K.itemsize)}"
+            K, T = K.astype(w), T.astype(w)
+        pos = np.searchsorted(K, T)
+        hit = np.zeros(m, bool)
+        inside = pos < n
+        hit[inside] = K[pos[inside]] == T[inside]
+        live = np.fromiter((v is not None for v in touched.values()),
+                           bool, m)
+        fresh = {t: v for t, v in touched.items() if v is not None}
+        packed = msgpack.packb(fresh, use_bin_type=True)
+        # each touched key's new bytes in `packed` (none where deleted)
+        el = np.zeros(m, np.int64)
+        el[live] = _entry_nbytes(tkl[live], np.fromiter(
+            fresh.values(), np.int64, len(fresh)))
+        at = np.empty(m + 1, np.int64)
+        at[0] = len(_map_header(len(fresh)))
+        np.cumsum(el, out=at[1:])
+        at[1:] += at[0]
+        n_new = n - int((hit & ~live).sum()) + int((~hit & live).sum())
+        head, tail = _head(state, n_new), _tail(state)
+        # the old bytes kept before each touched key and after the last,
+        # between each touched key's new bytes
+        pieces = [head] + [b""] * (2 * m + 1) + [tail]
+        pieces[1::2] = map(memoryview(self.blob).__getitem__, map(
+            slice, np.insert(O[pos + hit], 0, O[0]).tolist(),
+            np.append(O[pos], O[n]).tolist()))
+        pieces[2:-1:2] = map(packed.__getitem__, map(
+            slice, at[:-1].tolist(), at[1:].tolist()))
+        blob = b"".join(pieces)
+        # the layout of the new blob
+        lens = np.diff(O)
+        lens[pos[hit & live]] = el[hit & live]
+        keys, gone, ins = K, hit & ~live, ~hit & live
+        where = pos[ins]
+        if gone.any():
+            keep = np.ones(n, bool)
+            keep[pos[gone]] = False
+            keys, lens = keys[keep], lens[keep]
+            where = where - np.searchsorted(pos[gone], where)
+        if ins.any():
+            keys = np.insert(keys, where, T[ins])
+            lens = np.insert(lens, where, el[ins])
+        offs = np.empty(len(lens) + 1, np.int64)
+        offs[0] = len(head)
+        np.cumsum(lens, out=offs[1:])
+        offs[1:] += offs[0]
+        n_packed = (len(fresh) + len(state["tids"]) + len(state["children"])
+                    + len(state["chains"]))
+        return blob, keys, offs, n_packed
+
+
+#: one memo per store object, for every index on it in this process
+_MEMOS: "weakref.WeakKeyDictionary[BaseStore, _Memo]" = (
+    weakref.WeakKeyDictionary())
+_MEMOS_LOCK = threading.Lock()
+
+
+def _memo_of(store: BaseStore) -> _Memo:
+    with _MEMOS_LOCK:
+        memo = _MEMOS.get(store)
+        if memo is None:
+            memo = _MEMOS[store] = _Memo()
+        return memo
+
+
 class RefcountIndex:
     """The persistent index over one store.  Cheap to construct; every
     method re-reads the blob, so instances on different `Chipmink`s (or
-    processes) sharing a store stay coherent through the CAS."""
+    processes) sharing a store stay coherent through the CAS.  The views
+    (`counts`, ...) may be the state the store's memo shares with every
+    index on the store in this process, which their commits change in
+    place: `state_snapshot()` is a private copy."""
 
     def __init__(self, store: BaseStore, *,
                  max_cas_retries: int = MAX_CAS_RETRIES) -> None:
         self.store = store
         self.max_cas_retries = max_cas_retries
+        self._memo = _memo_of(store)
         self._state: Dict[str, Any] = {"tids": set(), "counts": {},
                                        "children": {}, "chains": {}}
         #: set when the last load found no blob / a corrupt blob
@@ -187,19 +397,29 @@ class RefcountIndex:
         return self._state["counts"].get(digest_hex, 0)
 
     def state_snapshot(self) -> Dict[str, Any]:
-        """Deep copy of the in-memory state (test/assert helper)."""
-        s = self._state
-        return {"tids": set(s["tids"]), "counts": dict(s["counts"]),
-                "children": dict(s["children"]),
-                "chains": dict(s["chains"])}
+        """Deep copy of the in-memory state, taken while no index on the
+        store mutates it."""
+        with self._memo.lock:
+            s = self._state
+            return {"tids": set(s["tids"]), "counts": dict(s["counts"]),
+                    "children": dict(s["children"]),
+                    "chains": dict(s["chains"])}
 
     # -- persistence -------------------------------------------------------
     def load(self) -> None:
         """Refresh the in-memory view from the store (no mutation)."""
-        state = self._decode(self.store.get_meta(REFCOUNTS_META_KEY))
-        self.missing = state is None
-        if state is not None:
-            self._state = state
+        memo = self._memo
+        with memo.lock:
+            blob = self.store.get_meta(REFCOUNTS_META_KEY)
+            if memo.holds(blob):
+                self._state, self.missing = memo.state, False
+                return
+            memo.drop()
+            state = self._decode(blob)
+            self.missing = state is None
+            if state is not None:
+                self._state = state
+                memo.seed(blob, state)
 
     def ensure(self) -> bool:
         """Load; rebuild from the store when the blob is absent or
@@ -214,67 +434,116 @@ class RefcountIndex:
     def rebuild(self) -> bool:
         """Recompute the index from the store and persist it.  Returns
         True when the persisted blob changed (drift existed)."""
-        for _ in range(self.max_cas_retries):
-            blob = self.store.get_meta(REFCOUNTS_META_KEY)
-            state = _scan_state(self.store)
-            new = self._encode(state)
-            if new == blob:
-                self._state = state
-                self.missing = False
-                return False
-            if self.store.compare_and_put_meta(REFCOUNTS_META_KEY, blob,
-                                               new):
-                self._state = state
-                self.missing = False
-                return True
+        memo = self._memo
+        with memo.lock:
+            for _ in range(self.max_cas_retries):
+                blob = self.store.get_meta(REFCOUNTS_META_KEY)
+                state = _scan_state(self.store)
+                new = self._encode(state)
+                if new == blob:
+                    memo.seed(blob, state)
+                    self._state, self.missing = state, False
+                    return False
+                if self.store.compare_and_put_meta(REFCOUNTS_META_KEY,
+                                                   blob, new):
+                    memo.seed(new, state)
+                    self._state, self.missing = state, False
+                    return True
+                memo.drop()
         raise RefcountCASError(
             f"refcount rebuild lost {self.max_cas_retries} CAS races")
 
-    def _mutate(self, fn) -> Any:
-        """Read-modify-CAS: `fn(state)` must be pure in its input state
-        (it reruns against the reloaded blob after a lost race).  A
-        missing or corrupt blob is rebuilt from the store first, so
-        every mutation self-heals."""
-        for _ in range(self.max_cas_retries):
-            blob = self.store.get_meta(REFCOUNTS_META_KEY)
-            state = self._decode(blob)
-            if state is None:
-                state = _scan_state(self.store)
-            out = fn(state)
-            new = self._encode(state)
-            if new == blob or self.store.compare_and_put_meta(
-                    REFCOUNTS_META_KEY, blob, new):
-                self._state = state
-                self.missing = False
-                return out
+    def _mutate(self, fn) -> Tuple[int, int]:
+        """Read-modify-CAS: `fn(state)` changes the state in place and
+        returns the `counts` entries it changed, in key order, each with
+        its new count or None where it went (`_Memo.splice`), or None
+        where it changed nothing.  It must be pure in its input
+        state (it reruns against the reloaded blob after a lost race).
+        A missing or corrupt blob is rebuilt from the store first, so
+        every mutation self-heals.  On the blob the store's memo holds,
+        nothing is decoded and only the changed entries are packed.
+        Returns (entries coded, twice the entries of the index): a whole
+        decode and encode code all of them."""
+        memo = self._memo
+        with memo.lock:
+            for _ in range(self.max_cas_retries):
+                blob = self.store.get_meta(REFCOUNTS_META_KEY)
+                try:
+                    out = self._mutate_once(memo, blob, fn)
+                except BaseException:
+                    memo.drop()         # `fn` may have half-run on it
+                    raise
+                if out is not None:
+                    return out
+                memo.drop()             # lost the race: no blob is its
         raise RefcountCASError(
             f"refcount mutation lost {self.max_cas_retries} CAS races")
 
+    def _mutate_once(self, memo: _Memo, blob: Optional[bytes],
+                     fn) -> Optional[Tuple[int, int]]:
+        """One read-modify-CAS of `_mutate` on `blob`; None when the CAS
+        is lost."""
+        coded = 0
+        known = memo.holds(blob)
+        if known:
+            state = memo.state
+        else:
+            memo.drop()
+            state = self._decode(blob)
+            if state is None:
+                state = _scan_state(self.store)
+            coded += _n_entries(state)
+        touched = fn(state)
+        if known and touched is None:
+            self._state, self.missing = state, False
+            return coded, 2 * _n_entries(state)
+        new = None
+        if known and memo.keys is not None:
+            try:
+                new, keys, offs, packed = memo.splice(state, touched)
+                coded += packed
+            except (TypeError, ValueError, OverflowError):
+                new = None      # a key or count the splice cannot size
+        if new is None:
+            new, keys, offs = self._encode(state), None, None
+            coded += _n_entries(state)
+        if new == blob:
+            memo.seed(blob, state, keys, offs)
+        elif self.store.compare_and_put_meta(REFCOUNTS_META_KEY, blob, new):
+            memo.seed(new, state, keys, offs)
+        else:
+            return None
+        self._state, self.missing = state, False
+        return coded, 2 * _n_entries(state)
+
     # -- mutations ---------------------------------------------------------
-    def record_commit(self, time_id: int, manifest: Dict[str, Any]) -> None:
+    def record_commit(self, time_id: int,
+                      manifest: Dict[str, Any]) -> Tuple[int, int]:
         """Count one freshly-put manifest.  Idempotent per TimeID (the
         commit step retries as a unit), so a retried put never
-        double-counts."""
+        double-counts.  Returns `_mutate`'s entries coded and whole."""
         pods = manifest.get("pods", {})
         digests = sorted({meta["d"] for meta in pods.values()})
         links = [(meta["d"], meta["delta_of"]) for meta in pods.values()
                  if "delta_of" in meta]
         parent = manifest.get("parent")
 
-        def fn(state: Dict[str, Any]) -> None:
+        def fn(state: Dict[str, Any]) -> Optional[Dict[str, int]]:
             if time_id in state["tids"]:
-                return
+                return None
             state["tids"].add(time_id)
             counts = state["counts"]
+            touched = {}
             for d in digests:
-                counts[d] = counts.get(d, 0) + 1
+                touched[d] = counts[d] = counts.get(d, 0) + 1
             if parent is not None:
                 ch = state["children"]
                 ch[parent] = ch.get(parent, 0) + 1
             for d, base in links:
                 state["chains"][d] = base
+            return touched
 
-        self._mutate(fn)
+        return self._mutate(fn)
 
     def apply_reclaim(self, dead_tids: Iterable[int],
                       pod_decrements: Dict[str, int],
@@ -289,17 +558,20 @@ class RefcountIndex:
         dead_pod_set = set(dead_pods)
         drop_chains = list(drop_chains)
 
-        def fn(state: Dict[str, Any]) -> None:
+        def fn(state: Dict[str, Any]) -> Dict[str, Optional[int]]:
             state["tids"].difference_update(dead_tids)
             counts = state["counts"]
-            for d, n in pod_decrements.items():
-                c = counts.get(d, 0) - n
+            touched: Dict[str, Optional[int]] = {}
+            for d in sorted(pod_decrements):
+                c = counts.get(d, 0) - pod_decrements[d]
                 if c > 0:
                     counts[d] = c
                 elif d in dead_pod_set:
                     counts.pop(d, None)
+                    c = None
                 else:
-                    counts[d] = 0          # pinned survivor
+                    counts[d] = c = 0      # pinned survivor
+                touched[d] = c
             ch = state["children"]
             for t, n in child_decrements.items():
                 c = ch.get(t, 0) - n
@@ -309,6 +581,7 @@ class RefcountIndex:
                     ch.pop(t, None)
             for d in drop_chains:
                 state["chains"].pop(d, None)
+            return touched
 
         self._mutate(fn)
 
@@ -360,6 +633,9 @@ def refcount_reclaim(store: BaseStore, dag: CommitDAG, index: RefcountIndex,
         index.load()
         if index.missing:
             index.rebuild()
+        # a private copy: the index's state may be the one every index on
+        # the store in this process shares, and their commits change it
+        snap = index.state_snapshot()
 
         pin_tids: Set[int] = set()
         pin_digs: Set[str] = set()
@@ -382,7 +658,7 @@ def refcount_reclaim(store: BaseStore, dag: CommitDAG, index: RefcountIndex,
         stop |= pin_tids
 
         # ---- walk: commits exclusive to the evicted tips ---------------
-        children = dict(index.children)
+        children = snap["children"]
         child_dec: Counter = Counter()
         dead_tids: List[int] = []
         dead_tid_set: Set[int] = set()
@@ -411,7 +687,8 @@ def refcount_reclaim(store: BaseStore, dag: CommitDAG, index: RefcountIndex,
             for d in {meta["d"]
                       for meta in manifests[tid].get("pods", {}).values()}:
                 pod_dec[d] += 1
-        counts = dict(index.counts)
+        counts = snap["counts"]
+        n_counted = len(counts)
         dead_pods: List[str] = []
         n_pods_pinned = 0
         for d, n in pod_dec.items():
@@ -429,7 +706,7 @@ def refcount_reclaim(store: BaseStore, dag: CommitDAG, index: RefcountIndex,
         # pod outside the dead set whose chain crosses a dead link is
         # re-materialized (conservative past a base that is itself being
         # rescued, exactly like the mark-and-sweep oracle).
-        chains = index.chains
+        chains = snap["chains"]
         remat = sorted(
             d for d in chains
             if d not in dead_pod_set
@@ -442,8 +719,8 @@ def refcount_reclaim(store: BaseStore, dag: CommitDAG, index: RefcountIndex,
         stats.n_commits_deleted = len(dead_tids)
         stats.n_pods_deleted = len(dead_pods)
         stats.deleted_pod_digests = dead_pods
-        stats.n_commits_live = len(index.tids) - len(dead_tids)
-        stats.n_pods_live = len(index.counts) - len(dead_pods)
+        stats.n_commits_live = len(snap["tids"]) - len(dead_tids)
+        stats.n_pods_live = n_counted - len(dead_pods)
 
         if dry_run:
             stats.manifest_bytes_reclaimed = sum(
