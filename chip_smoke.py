@@ -1497,8 +1497,8 @@ def phase_store_features(cfg: dict, gen: torch.Generator, device) -> dict:
             or not freed.n_pods_deleted):
         raise AssertionError(f"evict_branch freed {freed}, mark-and-sweep "
                              f"{full}")
-    left = mark_and_sweep(ck.store, ck.versions, extra_roots=(ck._head,),
-                          dry_run=True)
+    left = mark_and_sweep(ck.store, ck.versions,
+                          extra_roots=(ck.lineage.head,), dry_run=True)
     if left.n_pods_deleted or left.n_commits_deleted or \
             ck.refcounts.rebuild():
         raise AssertionError("refcount index disagrees with a store scan")
@@ -1790,9 +1790,10 @@ def phase_serve(device) -> dict:
         delta = []
         for k in range(n - 1):        # the last session was evicted
             ctx = svc.sessions[f"s{k}"]
-            if ctx.n_saves != n_snaps or ctx.head != snaps[-n + k]["time_id"]:
+            head = ctx.lineage.head
+            if ctx.n_saves != n_snaps or head != snaps[-n + k]["time_id"]:
                 raise AssertionError(f"{mode}: session s{k} made "
-                                     f"{ctx.n_saves} saves, head {ctx.head}")
+                                     f"{ctx.n_saves} saves, head {head}")
             pods = [set(dag.pod_digests_of(s["time_id"]))
                     for s in snaps[k::n]]
             delta.append([sum(svc.store.pod_nbytes(d) for d in p - q)
@@ -1929,7 +1930,7 @@ def phase_sessions(gen, device) -> dict:
                         if not async_mode and k == 0 and i + 1 == n_tokens:
                             busy, wall, n_ops = profile_device(
                                 lambda: svc.save_session("s0", state), 1)
-                            tid = svc.sessions["s0"].head
+                            tid = svc.sessions["s0"].lineage.head
                             log(f"[trace] s0's last sync save under the "
                                 f"profiler: device busy {busy:.3f} ms of "
                                 f"{wall:.3f} ms wall ({100 * busy / wall:.2f}"
@@ -1980,7 +1981,7 @@ def phase_sessions(gen, device) -> dict:
                      for kv in ("k", "v"))
         tables = sum(t.numel() * t.element_size()
                      for ctx in svc.sessions.values()
-                     for t in ctx.detector._dev_table.digs)
+                     for t in ctx.lineage.detector._dev_table.digs)
         log(f"[sessions] {mode}: {len(per_save)} saves, fetches per save "
             f"{counts} ({covered} warm saves covered by speculation, each "
             f"1 fetch), caller fetches "
@@ -1995,7 +1996,7 @@ def phase_sessions(gen, device) -> dict:
 
     # migration: a second service over the sync service's store
     svc, clones, per_save, caches, toks = stores["sync"]
-    tip = svc.sessions["s1"].head
+    tip = svc.sessions["s1"].lineage.head
     other = SessionService(svc.store, pool_size=1, **svc_kw)
     t0 = time.perf_counter()
     state = other.resume_session("s1")
@@ -2749,9 +2750,9 @@ def family_numerics(arch: str, gen, device) -> dict:
     side = "card"
     real = moe.router_dispatch
 
-    def spy(logits, mcfg):
+    def spy(logits, mcfg, *rest):
         routed[side].append(logits.detach().clone())
-        return real(logits, mcfg)
+        return real(logits, mcfg, *rest)
 
     step = make_decode_step(cfg)
     tokens_sure = []

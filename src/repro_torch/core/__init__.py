@@ -38,8 +38,8 @@ from .memo import CROSS_POD_OFFSET, GlobalMemoSpace
 from .podding import PodAssignment, Unpodder, pod_graph, serialize_pod
 from .store import BaseStore, FileStore, MemoryStore
 from .thesaurus import PodThesaurus
-from .volatility import (ConstantVolatility, FlipTracker, GBMVolatility,
-                         PriorVolatility, VolatilityModel)
+from .volatility import (ConstantVolatility, FlipTracker, PriorVolatility,
+                         VolatilityModel)
 from .active_filter import ActiveVariableFilter
 from .ascc import (STATIC_HOST_ALLOWLIST, host_call_is_static,
                    is_static_execution, readonly_state_leaves)

@@ -86,10 +86,10 @@ Single-sync save (``fused=True``, default)
 ------------------------------------------
 The device half of a save is one round-trip: the fused digest kernels
 compare against the device-resident previous table and the packed word
-rows of *speculated* chunks (flip-EMA above ``spec_threshold``, expanded
-to pod granularity plus the pods of changed scalars) ride along in the
-same fetch as the digests and dirty flags.  The gather phase then
-serializes written pods from those prefetched bytes; only
+rows of *speculated* chunks (flip-EMA above 0.25, expanded to pod
+granularity plus the pods of changed scalars) ride along in the same
+fetch as the digests and dirty flags.  The gather phase then serializes
+written pods from those prefetched bytes; only
 mispredicted-dirty chunks pay one corrective batched fetch
 (``n_corrective_syncs``), so a warm sparse save costs exactly one
 blocking device sync and any save at most two.  ``fused=False``
@@ -97,9 +97,22 @@ restores the two-sync path (digest fetch + payload gather) and
 ``batched=False`` the per-leaf path; manifests are bit-identical on
 every rung.
 
-Ablation switches (`enable_cd`, `enable_avf`, `async_mode`) reproduce
-the paper's §8.8/§8.9 baselines; `incremental=False` restores the
-from-scratch host path.
+Dedup through the thesaurus, the active-variable filter and flip
+tracking always run (the paper's §8.8/§8.9 ablations are the reference
+package's ``enable_cd`` and ``enable_avf``); ``async_mode=False`` is the
+synchronous baseline and ``incremental=False`` restores the from-scratch
+host path.
+
+Lineage
+-------
+What one save hands to the next save of the same history is one
+`Lineage`: the change detector (with its device-resident digest table),
+the graph cache, the flip tracker, the previous `PodAssignment`, graph
+and pod digests, and the head TimeID the next commit chains to.
+``Chipmink.lineage`` is the one in use; `save()` takes it once, at the
+call, and the save's body reads and writes only that object.
+`SessionService` keeps one per session and swaps it onto a pool
+instance; `delta_checkout` primes the instance's.
 
 Delta-chain pod storage (``delta_chains=True``)
 -----------------------------------------------
@@ -166,7 +179,7 @@ mark-and-sweep oracle and trues the index up.
 """
 from __future__ import annotations
 
-import hashlib
+import dataclasses
 import warnings
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
@@ -208,6 +221,9 @@ SPAN_ONLY_STATS = frozenset({
     "n_track_rows", "n_track_rows_built", "chunks_by_group",
     "dirty_by_group", "written_chunk_bytes", "clean_written_bytes",
     "n_refcount_coded", "n_refcount_whole"})
+
+#: entries per page of a pod's memo locals (a manifest's ``page_size``)
+MEMO_PAGE_SIZE = 1024
 
 
 def written_chunk_bytes(graph: ObjectGraph, asg: PodAssignment,
@@ -254,6 +270,33 @@ def _chunk_table(graph: ObjectGraph, asg: PodAssignment) -> Tuple:
     return (list(leaves), max(asg.pods) + 1, *cols)
 
 
+@dataclasses.dataclass(eq=False)
+class Lineage:
+    """The state a save hands to the next save of the same history
+    (module docstring, "Lineage")."""
+
+    detector: ChangeDetector
+    graph_cache: Optional[GraphCache]
+    tracker: FlipTracker
+    #: the commit the next save chains to by default
+    head: Optional[TimeID] = None
+    prev_pods: Optional[PodAssignment] = None
+    prev_graph: Optional[ObjectGraph] = None
+    #: the previous save's structural digest per pod id
+    pod_digests: Dict[int, bytes] = dataclasses.field(default_factory=dict)
+
+    def forget(self, head: Optional[TimeID]) -> None:
+        """Drop what the next save would chain from (the assignment, the
+        graph and the pod digests), so it re-pods and re-hashes from its
+        own graph, and chain it to `head`.  Invalidating the graph cache
+        is the caller's: a failed body, which calls this on the podding
+        thread, must not touch it."""
+        self.prev_pods = None
+        self.prev_graph = None
+        self.pod_digests = {}
+        self.head = head
+
+
 class Chipmink:
     def __init__(
         self,
@@ -261,17 +304,11 @@ class Chipmink:
         policy: Optional[PoddingPolicy] = None,
         *,
         chunk_bytes: int = 1 << 22,
-        thesaurus_capacity: int = 1 << 30,
-        memo_page_size: int = 1024,
-        enable_cd: bool = True,
-        enable_avf: bool = True,
         async_mode: bool = False,
         async_depth: int = 2,
         incremental: bool = True,
         fused: bool = True,
         batched: bool = True,
-        spec_threshold: float = 0.25,
-        track_flips: bool = True,
         copy_on_submit_bytes: int = 1 << 20,
         seed: int = 0,
         retry_policy: Optional[RetryPolicy] = None,
@@ -296,30 +333,19 @@ class Chipmink:
         self.store = store if store is not None else MemoryStore()
         self.policy = policy if policy is not None else LGA()
         self.chunk_bytes = chunk_bytes
-        self.memo_page_size = memo_page_size
-        self.enable_cd = enable_cd
-        self.enable_avf = enable_avf
         self.async_mode = async_mode
         self.incremental = incremental
-        self.detector = ChangeDetector(chunk_bytes=chunk_bytes, seed=seed,
-                                       fused=fused, batched=batched,
-                                       device=self.device)
-        self.fused = self.detector.fused
-        self.spec_threshold = spec_threshold
-        self.thesaurus = PodThesaurus(capacity_bytes=thesaurus_capacity)
-        self.tracker = FlipTracker() if track_flips else None
+        self.fused = fused
+        self.batched = batched
+        self.seed = seed
+        self.thesaurus = PodThesaurus()
         self.avf = ActiveVariableFilter()
         self.saver = AsyncSaver(depth=async_depth)
-        self._graph_cache = (GraphCache(chunk_bytes=chunk_bytes)
-                             if incremental else None)
         self.copy_on_submit_bytes = copy_on_submit_bytes
         self.large_leaf_action = large_leaf_action
         self._large_leaves_warned: Set[str] = set()
         #: side stream of the async save bodies (CUDA only; made lazily)
         self._side_stream: Optional[torch.cuda.Stream] = None
-        self._prev_pods: Optional[PodAssignment] = None
-        self._prev_graph: Optional[ObjectGraph] = None
-        self._pod_digests: Dict[int, bytes] = {}   # prev save's pod digests
         self.delta_chains = delta_chains
         self.delta_policy = (delta_policy if delta_policy is not None
                              else DeltaPolicy())
@@ -353,9 +379,9 @@ class Chipmink:
         self.versions = CommitDAG(self.store,
                                   max_cas_retries=max_refs_cas_retries,
                                   cas_backoff=refs_cas_backoff)
-        #: last saved/checked-out tid; resumes from the persisted HEAD so
-        #: a reopened instance chains its first commit to the old tip.
-        self._head: Optional[TimeID] = self.versions.head_commit()
+        #: its head resumes from the persisted HEAD, so a reopened
+        #: instance chains its first commit to the old tip.
+        self.lineage = self.new_lineage(head=self.versions.head_commit())
         self.last_checkout_stats = None
         self.save_stats: List[Dict[str, Any]] = []
         self._shared_tids = shared_tids
@@ -368,6 +394,17 @@ class Chipmink:
             self.refcounts.ensure()
         #: tips orphaned by delete_branch, awaiting an incremental gc()
         self._gc_backlog: List[TimeID] = []
+
+    def new_lineage(self, head: Optional[TimeID] = None) -> Lineage:
+        """A lineage of this instance's settings with nothing to chain
+        from but `head`: its first save walks, pods and digests afresh."""
+        return Lineage(
+            detector=ChangeDetector(chunk_bytes=self.chunk_bytes,
+                                    seed=self.seed, fused=self.fused,
+                                    batched=self.batched, device=self.device),
+            graph_cache=(GraphCache(chunk_bytes=self.chunk_bytes)
+                         if self.incremental else None),
+            tracker=FlipTracker(), head=head)
 
     # ------------------------------------------------------------------
     # multi-writer plumbing (leases, fenced TimeIDs)
@@ -448,6 +485,7 @@ class Chipmink:
         parent: Optional[TimeID] = None,
         branch: Optional[str] = None,
     ) -> TimeID:
+        lin = self.lineage
         with span("save") as sp:
             time_id = self._alloc_time_id()
             sp.time_id = time_id
@@ -458,19 +496,19 @@ class Chipmink:
                     # HEAD.
                     parent = self.versions.branches.get(branch)
                 else:
-                    parent = self._head  # commit chains to HEAD by default
+                    parent = lin.head  # commit chains to HEAD by default
 
             stats: Dict[str, Any] = {"time_id": time_id}
             with span("save.graph", stats, "t_graph"):
-                if self._graph_cache is not None:
-                    graph, ginfo = self._graph_cache.build(state)
+                if lin.graph_cache is not None:
+                    graph, ginfo = lin.graph_cache.build(state)
                 else:
                     graph = build_graph(state, chunk_bytes=self.chunk_bytes)
                     ginfo = None
             stats["n_leaf_copies"] = 0
 
             def work() -> None:
-                self._save_body(sp, stats, graph, ginfo, accessed_vars,
+                self._save_body(lin, sp, stats, graph, ginfo, accessed_vars,
                                 touched_prefixes, readonly_paths, parent,
                                 branch)
 
@@ -501,14 +539,14 @@ class Chipmink:
                     # "unchanged" against a build that never persisted.
                     # Invalidating the cache forces the next save to
                     # rebuild from scratch; queued bodies may still re-arm
-                    # _prev_pods / _pod_digests, but a from-scratch build
-                    # never consults them.
-                    if self._graph_cache is not None:
-                        self._graph_cache.invalidate()
+                    # the lineage's assignment and pod digests, but a
+                    # from-scratch build never consults them.
+                    if lin.graph_cache is not None:
+                        lin.graph_cache.invalidate()
                     raise
             else:
                 work()
-            self._head = time_id
+            lin.head = time_id
         return time_id
 
     def _snapshot(self, graph: ObjectGraph, time_id: TimeID,
@@ -591,28 +629,25 @@ class Chipmink:
         finally:
             self._join_side_stream()
 
-    def _save_body(self, save_span, stats, graph, ginfo, accessed_vars,
+    def _save_body(self, lin, save_span, stats, graph, ginfo, accessed_vars,
                    touched_prefixes, readonly_paths, parent,
                    branch=None) -> None:
         try:
             with span("save.body", stats, "t_body", cpu_key="t_body_cpu",
                       parent=save_span):
-                self._save_body_inner(stats, graph, ginfo, accessed_vars,
-                                      touched_prefixes, readonly_paths,
-                                      parent, branch)
+                self._save_body_inner(lin, stats, graph, ginfo,
+                                      accessed_vars, touched_prefixes,
+                                      readonly_paths, parent, branch)
         except BaseException as exc:
             # A half-applied save poisons the reuse chain: the graph cache
             # has already advanced, so the next save must re-pod and
             # re-hash from its own graph rather than trust artifacts of a
-            # save that never finished.  Lineage must not name the failed
-            # TimeID (it has no manifest) as a parent: fall back to the
-            # last commit that actually landed.
-            self._prev_pods = None
-            self._prev_graph = None
-            self._pod_digests = {}
-            self._head = (self.versions.branches.get(branch)
-                          if branch is not None
-                          else self.versions.head_commit())
+            # save that never finished.  The lineage must not name the
+            # failed TimeID (it has no manifest) as a parent: fall back to
+            # the last commit that actually landed.
+            lin.forget(self.versions.branches.get(branch)
+                       if branch is not None
+                       else self.versions.head_commit())
             # the failed save's intent pins nothing worth keeping: drop
             # it (best-effort).  A save fenced out by LeaseLost forgets
             # its lease so the next save re-acquires under a fresh token.
@@ -626,11 +661,12 @@ class Chipmink:
                         self._writer_lease = None
             raise
 
-    def _speculate(self, graph: ObjectGraph,
+    @staticmethod
+    def _speculate(lin: Lineage, graph: ObjectGraph,
                    ginfo: Optional[IncrementalBuildInfo]) -> Optional[Set[str]]:
         """Speculative dirty set for the fused single-sync save.
 
-        Seeds: chunk keys whose flip EMA exceeds ``spec_threshold``
+        Seeds: chunk keys whose flip EMA exceeds 0.25
         (`FlipTracker.predicted`) plus keys of scalars the incremental
         build saw change (their pods re-serialize this save even though
         no chunk flipped — the step counter is the canonical case).
@@ -644,13 +680,11 @@ class Chipmink:
         speculation is skipped (a from-scratch save is all-dirty anyway
         and pays its one corrective gather).
         """
-        if not self.fused or self.tracker is None:
+        asg = lin.prev_pods
+        if (not lin.detector.fused or asg is None or ginfo is None
+                or ginfo.from_scratch or ginfo.structural_change):
             return None
-        asg = self._prev_pods
-        if (asg is None or ginfo is None or ginfo.from_scratch
-                or ginfo.structural_change):
-            return None
-        seeds = self.tracker.predicted(self.spec_threshold)
+        seeds = lin.tracker.predicted()
         seeds.update(ginfo.scalar_changed_keys)
         pods: Set[int] = set()
         for key in seeds:
@@ -665,30 +699,27 @@ class Chipmink:
                     out.add(node.key)
         return out or None
 
-    def _save_body_inner(self, stats, graph, ginfo, accessed_vars,
+    def _save_body_inner(self, lin, stats, graph, ginfo, accessed_vars,
                          touched_prefixes, readonly_paths, parent,
                          branch=None) -> None:
         time_id = stats["time_id"]
         with span("save.avf", stats, "t_avf"):
-            if self.enable_avf:
-                active = self.avf.active_leaves(
-                    graph,
-                    readonly_paths=readonly_paths,
-                    touched_prefixes=touched_prefixes,
-                    prior_pods=(self._prev_pods if accessed_vars is not None
-                                else None),
-                    prior_graph=self._prev_graph,
-                    accessed_vars=accessed_vars,
-                )
-            else:
-                active = {n.key for n in graph.leaf_nodes()}
+            active = self.avf.active_leaves(
+                graph,
+                readonly_paths=readonly_paths,
+                touched_prefixes=touched_prefixes,
+                prior_pods=(lin.prev_pods if accessed_vars is not None
+                            else None),
+                prior_graph=lin.prev_graph,
+                accessed_vars=accessed_vars,
+            )
             stats["n_leaves"] = len(list(graph.leaf_nodes()))
             stats["n_active_leaves"] = len(active)
 
         with span("save.digest", stats, "t_digest"):
-            spec = self._speculate(graph, ginfo)
-            report = self.detector.detect(graph, active, speculate=spec,
-                                          stats=stats)
+            spec = self._speculate(lin, graph, ginfo)
+            report = lin.detector.detect(graph, active, speculate=spec,
+                                         stats=stats)
             stats["n_chunks"] = len(report.digests)
             stats["n_dirty_chunks"] = len(report.dirty)
             stats["chunks_by_group"] = report.chunks_by_group
@@ -698,12 +729,12 @@ class Chipmink:
         stats["n_spec_hits"] = report.n_spec_hits
         stats["n_spec_misses"] = report.n_spec_misses
 
-        if self.tracker is not None:
-            with span("save.track", stats, "t_track"):
-                chunks, changed = self.tracker.chunk_keys(graph, active)
-                stats["n_track_rows"], stats["n_track_rows_built"] = \
-                    self.tracker.observe(graph, report.dirty, chunks,
-                                         changed_keys=changed)
+        with span("save.track", stats, "t_track"):
+            stats["n_track_rows"] = lin.tracker.observe(
+                graph, report.dirty, lin.tracker.chunk_keys(graph, active))
+            # the tracker builds no feature row; the counter stays for
+            # the benchmark's `track_reuse_pct.*` readers
+            stats["n_track_rows_built"] = 0
 
         # podding: reuse the previous assignment verbatim when the graph
         # structure is unchanged (memo locals preserved, §7.3 stability);
@@ -713,15 +744,14 @@ class Chipmink:
             pods_reused = (self.incremental and ginfo is not None
                            and not ginfo.from_scratch
                            and not ginfo.structural_change
-                           and self._prev_pods is not None)
+                           and lin.prev_pods is not None)
             if pods_reused:
-                asg = self._prev_pods
+                asg = lin.prev_pods
                 stats["n_pods_reused"] = len(asg.pods)
             else:
                 asg = pod_graph(graph, self.policy,
-                                flip_ema=(self.tracker.ema if self.tracker
-                                          else None),
-                                memo_page_size=self.memo_page_size,
+                                flip_ema=lin.tracker.ema,
+                                memo_page_size=MEMO_PAGE_SIZE,
                                 changed_keys=(ginfo.rebuilt_keys
                                               if ginfo is not None else None))
                 stats["n_pods_reused"] = 0
@@ -734,7 +764,7 @@ class Chipmink:
         # is a pure function of unchanged inputs).
         with span("save.decide", stats, "t_decide"):
             touched_pods = None
-            if pods_reused and self._pod_digests:
+            if pods_reused and lin.pod_digests:
                 touched_pods = set()
                 for key in report.dirty:
                     nid = graph.by_key.get(key)
@@ -750,37 +780,25 @@ class Chipmink:
             #: the parent commit's digest per pod id — the delta base each
             #: touched pod would chain to (captured before new_digests
             #: lands).
-            prev_pod_digests = self._pod_digests
+            prev_pod_digests = lin.pod_digests
             new_digests: Dict[int, bytes] = {}
             to_write: List[tuple] = []        # (pid, pod, dig_hex, digest)
             aliased_entries: List[tuple] = []  # same shape; dedup-skipped
             for pid, pod in asg.pods.items():
                 if touched_pods is not None and pid not in touched_pods \
-                        and pid in self._pod_digests:
-                    digest = self._pod_digests[pid]
+                        and pid in prev_pod_digests:
+                    digest = prev_pod_digests[pid]
                 else:
                     digest = pod_structural_digest(pod, graph, asg,
                                                    report.digests)
                 new_digests[pid] = digest
                 dig_hex = digest.hex()
-                skip = False
-                if self.enable_cd:
-                    with self.saver.l_ns:
-                        ref = self.thesaurus.lookup(digest)
-                    if ref is not None:
-                        skip = True           # synonymous pod (§4.2)
-                if not skip:
-                    if not self.enable_cd:
-                        # NoCD baseline: every save writes unconditionally
-                        # under a unique key (true snapshot cost, no
-                        # dedup).
-                        h = hashlib.blake2b(digest, digest_size=16,
-                                            person=b"nocd")
-                        h.update(time_id.to_bytes(8, "little"))
-                        dig_hex = h.hexdigest()
+                with self.saver.l_ns:
+                    ref = self.thesaurus.lookup(digest)
+                if ref is None:
                     to_write.append((pid, pod, dig_hex, digest))
                 else:
-                    aliased += 1
+                    aliased += 1              # synonymous pod (§4.2)
                     aliased_entries.append((pid, pod, dig_hex, digest))
                 pods_meta[pid] = {
                     "d": dig_hex,
@@ -788,7 +806,7 @@ class Chipmink:
                               if pid in asg.memo.pods else []),
                     "n": len(pod.node_ids),
                 }
-            self._pod_digests = new_digests
+            lin.pod_digests = new_digests
 
         # intent phase (multi-writer): declare the commit — its TimeID,
         # its parent and every digest the manifest will reference — under
@@ -824,7 +842,7 @@ class Chipmink:
         with span("save.gather", stats, "t_gather"):
             gather_nodes = [graph.node(nid) for _, pod, _, _ in to_write
                             for nid in pod.node_ids]
-            if self.fused:
+            if lin.detector.fused:
                 chunk_bytes_of, gather_syncs = fused_chunk_fetch(
                     graph, gather_nodes, report.payload)
                 stats["n_corrective_syncs"] = gather_syncs
@@ -844,8 +862,8 @@ class Chipmink:
             # has a per-pod parent digest AND the soundness proof
             # (assignment reuse + detector mask) that non-patched entries
             # are byte-identical.
-            delta_eligible = (self.delta_chains and self.enable_cd
-                              and pods_reused and touched_pods is not None)
+            delta_eligible = (self.delta_chains and pods_reused
+                              and touched_pods is not None)
             scalar_changed = (set(ginfo.scalar_changed_keys) if ginfo
                               else set())
             n_delta_pods = 0
@@ -886,16 +904,13 @@ class Chipmink:
                 def put_one(dig_hex=dig_hex, data=data, digest=digest,
                             delta_blob=delta_blob) -> bool:
                     with self.saver.l_ns:
-                        if self.enable_cd:
-                            if delta_blob is not None:
-                                fresh = self.store.put_pod_delta(dig_hex,
-                                                                 delta_blob)
-                            else:
-                                fresh = self.store.put_pod(dig_hex, data)
-                            self.thesaurus.insert(digest, dig_hex)
-                            return fresh
-                        self.store.put_pod(dig_hex, data)
-                        return True
+                        if delta_blob is not None:
+                            fresh = self.store.put_pod_delta(dig_hex,
+                                                             delta_blob)
+                        else:
+                            fresh = self.store.put_pod(dig_hex, data)
+                        self.thesaurus.insert(digest, dig_hex)
+                        return fresh
 
                 fresh, nr = call_with_retries(put_one, self.retry_policy)
                 n_retries += nr
@@ -947,7 +962,7 @@ class Chipmink:
                             manifest.update(
                                 time_id=time_id, parent=parent,
                                 root_pod=asg.root_pod,
-                                page_size=self.memo_page_size,
+                                page_size=MEMO_PAGE_SIZE,
                                 pods={str(pid): meta
                                       for pid, meta in pods_meta.items()},
                                 # the save's full chunk-digest table, so a
@@ -976,8 +991,8 @@ class Chipmink:
                 self.leases.clear_intent(lease)
             except Exception:
                 pass
-        self._prev_pods = asg
-        self._prev_graph = graph
+        lin.prev_pods = asg
+        lin.prev_graph = graph
         self.save_stats.append(stats)
 
     # ------------------------------------------------------------------
@@ -1074,7 +1089,7 @@ class Chipmink:
         with self.saver.l_ns:
             if ref is not None:
                 dag.set_head(ref)
-            self._head = tid
+            self.lineage.head = tid
         if like is not None:
             return reflow(like, state)
         return state
@@ -1113,7 +1128,7 @@ class Chipmink:
                 stats = refcount_reclaim(self.store, self.versions,
                                          self.refcounts,
                                          list(self._gc_backlog),
-                                         extra_roots=(self._head,),
+                                         extra_roots=(self.lineage.head,),
                                          dry_run=dry_run,
                                          leases=self.leases)
                 if not dry_run:
@@ -1122,7 +1137,7 @@ class Chipmink:
                         self.thesaurus.prune(stats.deleted_pod_digests)
                 return stats
             stats = mark_and_sweep(self.store, self.versions,
-                                   extra_roots=(self._head,),
+                                   extra_roots=(self.lineage.head,),
                                    dry_run=dry_run,
                                    leases=self.leases)
             if not dry_run:
@@ -1160,7 +1175,8 @@ class Chipmink:
             # — unless that commit IS the evicted tip, in which case the
             # live incremental state dies with the branch: reset it like
             # a failed save, so the next save rebuilds from scratch.
-            head_root = self._head if self._head != tip else None
+            lin = self.lineage
+            head_root = lin.head if lin.head != tip else None
             if dry_run:
                 return refcount_reclaim(self.store, self.versions,
                                         self.refcounts, [tip],
@@ -1168,13 +1184,10 @@ class Chipmink:
                                         exclude_refs=(name,),
                                         dry_run=True,
                                         leases=self.leases)
-            if self._head == tip:
-                self._prev_pods = None
-                self._prev_graph = None
-                self._pod_digests = {}
-                if self._graph_cache is not None:
-                    self._graph_cache.invalidate()
-                self._head = None
+            if lin.head == tip:
+                lin.forget(None)
+                if lin.graph_cache is not None:
+                    lin.graph_cache.invalidate()
             self.versions.delete_branch(name)
             stats = refcount_reclaim(self.store, self.versions,
                                      self.refcounts, [tip],
@@ -1199,7 +1212,7 @@ class Chipmink:
                 self.thesaurus.prune(report.swept_pod_digests)
             if repair:
                 self.versions.reload()
-                self._head = self.versions.head_commit()
+                self.lineage.head = self.versions.head_commit()
                 # a swept torn save may have consumed TimeIDs; never
                 # reissue one below an existing manifest.
                 existing = self.store.list_time_ids()

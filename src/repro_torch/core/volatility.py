@@ -4,10 +4,10 @@ Object mutations are modeled as Poisson events with rate λ(u) <= 1 per
 step-window; pod volatility composes by summation λ(u_p) = Σ λ(u).
 
 The paper trains LightGBM on lightweight, type-agnostic features (immediate
-size, length, __dict__ length).  LightGBM is unavailable offline, so we ship
-a small gradient-boosted-stumps regressor in pure numpy with the same
-contract, plus the paper's ablation models (λ≡0 → LGA-0, λ≡1 → LGA-1) and a
-heuristic prior used before any mutation history exists.
+size, length, __dict__ length).  The save path fits no model: LGA reads the
+heuristic prior below, whose feature 9 is the flip-rate EMA that
+`FlipTracker` keeps per chunk, or one of the paper's ablation models
+(λ≡0 → LGA-0, λ≡1 → LGA-1).
 
 Features per graph node (the training-state analogues of the paper's
 size/length/__dict__-length):
@@ -30,7 +30,7 @@ from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
-from .graph import CHUNK, CONTAINER, LEAF, SCALAR, Node, ObjectGraph
+from .graph import CHUNK, LEAF, SCALAR, Node, ObjectGraph
 
 N_FEATURES = 10
 
@@ -72,26 +72,11 @@ def static_node_features(node: Node) -> np.ndarray:
     return f
 
 
-def node_features(node: Node, graph: ObjectGraph,
-                  flip_ema: Optional[Dict[str, float]] = None) -> np.ndarray:
-    f = static_node_features(node)
-    f[9] = flip_ema.get(node.key, 0.5) if flip_ema is not None else 0.5
-    return f
-
-
-def graph_features(graph: ObjectGraph,
-                   flip_ema: Optional[Dict[str, float]] = None) -> Dict[str, np.ndarray]:
-    return {n.key: node_features(n, graph, flip_ema) for n in graph.nodes.values()}
-
-
 class VolatilityModel:
     """λ(u) ∈ [0, 1] per node."""
 
     def predict(self, feats: np.ndarray) -> np.ndarray:  # (N, F) -> (N,)
         raise NotImplementedError
-
-    def predict_one(self, f: np.ndarray) -> float:
-        return float(self.predict(f[None, :])[0])
 
 
 class ConstantVolatility(VolatilityModel):
@@ -115,128 +100,32 @@ class PriorVolatility(VolatilityModel):
         return np.clip(lam, 0.0, 1.0)
 
 
-class _Stump:
-    __slots__ = ("feature", "threshold", "left", "right")
-
-    def __init__(self, feature: int, threshold: float, left: float, right: float):
-        self.feature, self.threshold = feature, threshold
-        self.left, self.right = left, right
-
-    def predict(self, X: np.ndarray) -> np.ndarray:
-        return np.where(X[:, self.feature] <= self.threshold, self.left, self.right)
-
-
-class GBMVolatility(VolatilityModel):
-    """Gradient-boosted depth-1 trees with logistic loss (LightGBM stand-in).
-
-    Fit on (features, mutated?) samples bootstrapped from the change
-    detector, exactly the paper's §7.5 procedure.
-    """
-
-    def __init__(self, n_estimators: int = 60, learning_rate: float = 0.2,
-                 n_thresholds: int = 16):
-        self.n_estimators = n_estimators
-        self.lr = learning_rate
-        self.n_thresholds = n_thresholds
-        self.base = 0.0
-        self.stumps: List[_Stump] = []
-
-    def fit(self, X: np.ndarray, y: np.ndarray) -> "GBMVolatility":
-        X = np.asarray(X, dtype=np.float64)
-        y = np.asarray(y, dtype=np.float64)
-        pbar = float(np.clip(y.mean(), 1e-4, 1 - 1e-4))
-        self.base = float(np.log(pbar / (1 - pbar)))
-        raw = np.full(y.shape, self.base)
-        self.stumps = []
-        for _ in range(self.n_estimators):
-            p = 1.0 / (1.0 + np.exp(-raw))
-            grad = y - p                      # negative gradient of logloss
-            stump = self._fit_stump(X, grad)
-            if stump is None:
-                break
-            self.stumps.append(stump)
-            raw = raw + self.lr * stump.predict(X)
-        return self
-
-    def _fit_stump(self, X: np.ndarray, g: np.ndarray) -> Optional[_Stump]:
-        best = None
-        best_gain = 1e-12
-        n, F = X.shape
-        for j in range(F):
-            col = X[:, j]
-            qs = np.quantile(col, np.linspace(0.05, 0.95, self.n_thresholds))
-            for t in np.unique(qs):
-                mask = col <= t
-                nl = int(mask.sum())
-                if nl == 0 or nl == n:
-                    continue
-                gl = g[mask].sum()
-                gr = g.sum() - gl
-                gain = gl * gl / nl + gr * gr / (n - nl)
-                if gain > best_gain:
-                    best_gain = gain
-                    best = _Stump(j, float(t), float(gl / nl), float(gr / (n - nl)))
-        return best
-
-    def predict(self, feats: np.ndarray) -> np.ndarray:
-        X = np.asarray(feats, dtype=np.float64)
-        raw = np.full((X.shape[0],), self.base)
-        for s in self.stumps:
-            raw = raw + self.lr * s.predict(X)
-        return np.clip(1.0 / (1.0 + np.exp(-raw)), 0.0, 1.0)
-
-
 class FlipTracker:
-    """Historical per-node mutation EMA (feature 9) + training-sample buffer.
+    """Historical per-chunk flip EMA (feature 9), which speculation
+    (`predicted`) and the podding policy read.
 
-    The per-key state lives in arrays aligned with the active keys of the
-    last `observe`: the EMA, mirrored into `ema` (which the podding
-    policy and the fused save read), and the static feature rows
-    (features 0–8), which a key keeps across saves while its node is
-    unchanged, as `LGA.prepare` keeps them.  The arrays are re-laid only
-    when the active keys change.
+    The EMA lives in an array aligned with the active keys of the last
+    `observe` and is mirrored into `ema`; the array is re-laid only when
+    the active keys change.
     """
 
     def __init__(self, beta: float = 0.3):
         self.beta = beta
         self.ema: Dict[str, float] = {}
-        #: one block of sample rows / labels per observe
-        self._X: List[np.ndarray] = []
-        self._y: List[np.ndarray] = []
         self._keys: List[str] = []
         self._index: Dict[str, int] = {}
         self._ema = np.zeros((0,), dtype=np.float64)
-        self._rows = np.zeros((0, N_FEATURES), dtype=np.float64)
-        #: rows whose features 0–8 are those of the key's current node
-        self._built = np.zeros((0,), dtype=bool)
         #: leaf key -> (its node at the last `chunk_keys`, its chunk keys)
         self._leaves: Dict[str, Tuple[Node, List[str]]] = {}
 
-    @property
-    def samples_X(self) -> np.ndarray:
-        """Every sample row observed, (n, N_FEATURES): a save's rows in
-        the order of its active keys."""
-        return (np.concatenate(self._X) if self._X
-                else np.zeros((0, N_FEATURES), dtype=np.float64))
-
-    @property
-    def samples_y(self) -> np.ndarray:
-        """1.0 where the sample's chunk flipped, else 0.0."""
-        return (np.concatenate(self._y) if self._y
-                else np.zeros((0,), dtype=np.float64))
-
     def chunk_keys(self, graph: ObjectGraph, leaves: Iterable[str]
-                   ) -> Tuple[List[str], Set[str]]:
-        """Keys of the chunks of the leaves named in `leaves`, and those of
-        them whose leaf has another node than at the previous call.
+                   ) -> List[str]:
+        """Keys of the chunks of the leaves named in `leaves`.
 
         Nodes are never mutated and an unchanged leaf keeps its node and
         its chunks' nodes across incremental builds, so a leaf whose node
-        is the one seen last time reuses its keys, and a checkout's fresh
-        graph, a from-scratch build or a re-shaped leaf names its chunks
-        changed."""
+        is the one seen last time reuses its key list."""
         keys: List[str] = []
-        changed: Set[str] = set()
         seen: Dict[str, Tuple[Node, List[str]]] = {}
         for k in sorted(leaves):
             node = graph.nodes.get(graph.by_key.get(k))
@@ -245,84 +134,43 @@ class FlipTracker:
             hit = self._leaves.get(k)
             if hit is None or hit[0] is not node:
                 hit = (node, [graph.nodes[c].key for c in node.children])
-                changed.update(hit[1])
             seen[k] = hit
             keys += hit[1]
         self._leaves = seen
-        return keys, changed
+        return keys
 
     def observe(self, graph: ObjectGraph, dirty_keys: Iterable[str],
-                active_keys: Optional[Iterable[str]] = None,
-                collect: bool = True,
-                changed_keys: Optional[Set[str]] = None) -> Tuple[int, int]:
-        """Update the EMA of every active key (every chunk when
-        `active_keys` is None) and collect a sample row for each that has
-        a node in `graph`.
-
-        `changed_keys` names the keys whose node changed since the
-        previous observe; every other key seen before keeps its features
-        0–8.  None rebuilds every row.  Returns the number of rows
-        observed and of rows whose features 0–8 were built."""
+                active_keys: Optional[Iterable[str]] = None) -> int:
+        """Update the EMA of every active key (every chunk of `graph`
+        when `active_keys` is None): a key in `dirty_keys` flipped.
+        Returns the number of keys updated."""
         if active_keys is None:
             active_keys = [n.key for n in graph.chunk_nodes()]
         elif not isinstance(active_keys, list):
             active_keys = list(active_keys)
         if active_keys != self._keys:
             self._relayout(active_keys)
-        keys, index, by_key = self._keys, self._index, graph.by_key
-        n = len(keys)
-        has = np.fromiter(map(by_key.__contains__, keys), dtype=bool,
-                          count=n)
-        if changed_keys is None:
-            build = has
-        else:
-            build = has & ~self._built
-            hit = [i for i in map(index.get, changed_keys) if i is not None]
-            build[hit] = has[hit]
-        rows = self._rows
-        for i in np.flatnonzero(build).tolist():
-            rows[i] = static_node_features(graph.nodes[by_key[keys[i]]])
-        self._built = has
-        flipped = np.zeros((n,), dtype=np.float64)
+        keys, index = self._keys, self._index
+        flipped = np.zeros((len(keys),), dtype=np.float64)
         flipped[[i for i in map(index.get, dirty_keys) if i is not None]] = 1.0
         # the reference's per-key (1 - beta) * prev + beta * flipped: the
         # same IEEE operations in the same order, so the same bits
         ema = (1 - self.beta) * self._ema + self.beta * flipped
         self._ema = ema
         self.ema.update(zip(keys, ema.tolist()))
-        if collect:
-            X = rows[has]
-            X[:, 9] = ema[has]
-            self._X.append(X)
-            self._y.append(flipped[has])
-        return int(has.sum()), int(build.sum())
+        return len(keys)
 
     def _relayout(self, active_keys: List[str]) -> None:
-        """Align the arrays with new active keys: a key seen before keeps
-        its row, a key new to the tracker gets its EMA from `ema`."""
+        """Align the array with new active keys; each key's EMA comes
+        from `ema` (0.5 for a key never observed)."""
         keys = list(dict.fromkeys(active_keys))
-        n = len(keys)
-        old = np.fromiter(map(self._index.get, keys, repeat(-1)),
-                          dtype=np.intp, count=n)
-        kept = old >= 0
-        rows = np.zeros((n, N_FEATURES), dtype=np.float64)
-        rows[kept] = self._rows[old[kept]]
-        built = np.zeros((n,), dtype=bool)
-        built[kept] = self._built[old[kept]]
-        self._keys, self._rows, self._built = keys, rows, built
-        self._index = dict(zip(keys, range(n)))
+        self._keys = keys
+        self._index = dict(zip(keys, range(len(keys))))
         self._ema = np.fromiter(map(self.ema.get, keys, repeat(0.5)),
-                                dtype=np.float64, count=n)
+                                dtype=np.float64, count=len(keys))
 
     def predicted(self, threshold: float = 0.25) -> Set[str]:
         """Chunk keys whose flip EMA exceeds `threshold` — the speculative
         dirty set the fused save compacts into the digest fetch.  Keys
         never observed are absent (no EMA → no prediction)."""
         return {k for k, v in self.ema.items() if v > threshold}
-
-    def fit_gbm(self, **kw) -> GBMVolatility:
-        model = GBMVolatility(**kw)
-        y = self.samples_y
-        if len(y):
-            model.fit(self.samples_X, y)
-        return model

@@ -4,7 +4,7 @@ The port of `repro.sessions.service`.  Every pool instance is a port
 `Chipmink` on one device (``device="cuda"`` by default, as `Chipmink`;
 pass ``device="cpu"`` to run the kernels' plain versions), and each
 session's detector digests on that device.  A swapped-out session keeps
-its detector, and with it its device-resident digest table
+its lineage's detector, and with it its device-resident digest table
 (`ChangeDetector._dev_table`, 16 bytes per bucket row of its last
 save, padding included), so the device memory the service holds grows
 with the number of sessions.
@@ -32,14 +32,14 @@ economics in three ways:
 
 What is *per-session* vs *shared* is the crux of the design.  Shared:
 the store, the commit DAG, the refcount index, each pool instance's
-thesaurus and async pipeline.  Per-session (swapped onto a pool
-instance at each touch, captured back when the instance is rebound):
-the `ChangeDetector` (device-resident digest table of the session's own
-previous save), `GraphCache`, `FlipTracker`, previous `PodAssignment` /
-graph / pod digests, and the head TimeID — exactly the state that makes
-the next save of THAT session incremental.  A rebind drains the
-instance first, so swapped-out state is never touched by an in-flight
-save body.
+thesaurus and async pipeline.  Per-session: one `Lineage`
+(`core.checkpoint`) — the `ChangeDetector` (device-resident digest table
+of the session's own previous save), `GraphCache`, `FlipTracker`,
+previous `PodAssignment` / graph / pod digests, and the head TimeID,
+exactly the state that makes the next save of THAT session incremental.
+Binding a session to a pool instance points the instance's ``lineage``
+at the session's; a rebind drains the instance first, so a swapped-out
+lineage is never touched by an in-flight save body.
 
 Pool sizing: ``pool_size=1`` serializes all sessions through one
 instance (every rebind to a *different* session costs a drain — fine
@@ -61,32 +61,23 @@ from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Set
 
-from ..core.change_detector import ChangeDetector
-from ..core.checkpoint import Chipmink, TimeID
-from ..core.graph_cache import GraphCache
+from ..core.checkpoint import Chipmink, Lineage, TimeID
 from ..core.store import BaseStore, MemoryStore
 from ..core.trace import span
-from ..core.volatility import FlipTracker
 
 SESSION_NS = "sessions/"
 
 
 @dataclasses.dataclass
 class SessionContext:
-    """One session's swappable incremental-pipeline state."""
+    """One session: its branch, its pool slot and its lineage."""
 
     session_id: str
     branch: str
     slot: int
-    head: Optional[TimeID] = None
-    detector: Optional[ChangeDetector] = None
-    graph_cache: Optional[GraphCache] = None
-    tracker: Optional[FlipTracker] = None
-    prev_pods: Any = None
-    prev_graph: Any = None
-    pod_digests: Dict[int, bytes] = dataclasses.field(default_factory=dict)
+    lineage: Lineage
     n_saves: int = 0
     last_used: float = 0.0
     last_checkout_stats: Any = None
@@ -163,8 +154,6 @@ class SessionService:
                 fsck_on_open=(fsck_on_open if i == 0 else False),
                 **chipmink_kwargs))
         self.sessions: Dict[str, SessionContext] = {}
-        #: slot -> session id currently installed on that pool instance
-        self._bound: List[Optional[str]] = [None] * pool_size
         self._rr = 0
         self.save_stalls: List[float] = []
         self.evict_latencies: List[float] = []
@@ -172,65 +161,18 @@ class SessionService:
         self.bytes_reclaimed = 0
 
     # ------------------------------------------------------------------
-    # binding: swap per-session pipeline state onto a pool instance
+    # binding: point a pool instance at a session's lineage
     # ------------------------------------------------------------------
-    def _fresh_state(self, ck: Chipmink) -> Tuple[ChangeDetector,
-                                                  Optional[GraphCache],
-                                                  Optional[FlipTracker]]:
-        d = ck.detector
-        det = ChangeDetector(chunk_bytes=d.chunk_bytes, seed=d.seed,
-                             batched=d.batched, fused=d.fused,
-                             device=d.device)
-        cache = (GraphCache(chunk_bytes=ck.chunk_bytes)
-                 if ck.incremental else None)
-        tracker = FlipTracker() if ck.tracker is not None else None
-        return det, cache, tracker
-
-    def _capture(self, slot: int) -> None:
-        """Save the bound session's pipeline state back into its ctx.
-        Caller must have drained the instance."""
-        sid = self._bound[slot]
-        if sid is None:
-            return
-        ctx = self.sessions.get(sid)
-        ck = self.pool[slot]
-        if ctx is not None:
-            ctx.detector = ck.detector
-            ctx.graph_cache = ck._graph_cache
-            ctx.tracker = ck.tracker
-            ctx.prev_pods = ck._prev_pods
-            ctx.prev_graph = ck._prev_graph
-            ctx.pod_digests = ck._pod_digests
-            ctx.head = ck._head
-        self._bound[slot] = None
-
-    def _install(self, ctx: SessionContext) -> Chipmink:
-        ck = self.pool[ctx.slot]
-        if ctx.detector is None:
-            ctx.detector, ctx.graph_cache, ctx.tracker = \
-                self._fresh_state(ck)
-        ck.detector = ctx.detector
-        ck.fused = ctx.detector.fused
-        ck._graph_cache = ctx.graph_cache
-        ck.tracker = ctx.tracker
-        ck._prev_pods = ctx.prev_pods
-        ck._prev_graph = ctx.prev_graph
-        ck._pod_digests = ctx.pod_digests
-        ck._head = ctx.head
-        self._bound[ctx.slot] = ctx.session_id
-        return ck
-
     def _bind(self, ctx: SessionContext) -> Chipmink:
         """Make `ctx`'s pool instance ready for this session: no-op when
-        already bound (the hot path — a session saving repeatedly on its
-        slot pays zero swap cost); otherwise drain, capture the previous
-        tenant, install this one."""
-        if self._bound[ctx.slot] == ctx.session_id:
-            return self.pool[ctx.slot]
+        its lineage is the instance's (the hot path — a session saving
+        repeatedly on its slot pays zero swap cost); otherwise drain the
+        instance and point it at this one."""
         ck = self.pool[ctx.slot]
-        ck.wait()
-        self._capture(ctx.slot)
-        return self._install(ctx)
+        if ck.lineage is not ctx.lineage:
+            ck.wait()
+            ck.lineage = ctx.lineage
+        return ck
 
     # ------------------------------------------------------------------
     # session lifecycle
@@ -255,14 +197,16 @@ class SessionService:
                 "use resume_session to adopt it")
         slot = self._rr % len(self.pool)
         self._rr += 1
-        ctx = SessionContext(session_id=session_id, branch=branch,
-                             slot=slot, last_used=_time.time())
+        tid = None
         if from_ref is not None:
             ck0.wait()
             with ck0.saver.l_ns:
                 tid = ck0.versions.create_branch(branch, at=from_ref,
                                                  switch=False)
-            ctx.head = tid
+        ctx = SessionContext(session_id=session_id, branch=branch,
+                             slot=slot,
+                             lineage=self.pool[slot].new_lineage(head=tid),
+                             last_used=_time.time())
         self.sessions[session_id] = ctx
         return ctx
 
@@ -277,10 +221,9 @@ class SessionService:
         ctx = self.sessions[session_id]
         ck = self._bind(ctx)
         with span("session.save", session=session_id) as sp:
-            tid = ck.save(state, parent=ctx.head, branch=ctx.branch,
+            tid = ck.save(state, parent=ctx.lineage.head, branch=ctx.branch,
                           **save_kwargs)
         self.save_stalls.append(sp.seconds)
-        ctx.head = tid
         ctx.n_saves += 1
         ctx.last_used = _time.time()
         return tid
@@ -298,9 +241,9 @@ class SessionService:
         if ctx is None:
             slot = self._rr % len(self.pool)
             self._rr += 1
-            ctx = SessionContext(session_id=session_id, branch=branch,
-                                 slot=slot)
-        ck = self.pool[ctx.slot]
+        else:
+            slot = ctx.slot
+        ck = self.pool[slot]
         ck.wait()
         # another instance may have advanced (or created) the branch:
         # refs are the cross-instance truth.
@@ -309,21 +252,16 @@ class SessionService:
         if tip is None:
             self.sessions.pop(session_id, None)
             raise KeyError(f"no such session branch {branch!r}")
-        self._capture(ctx.slot)
-        # checkout primes the INSTANCE's pipeline state; install fresh
-        # state first so it primes this session's, not a stale tenant's.
-        ctx.detector, ctx.graph_cache, ctx.tracker = self._fresh_state(ck)
-        ctx.prev_pods = ctx.prev_graph = None
-        ctx.pod_digests = {}
-        ctx.head = tip
-        self._install(ctx)
+        # checkout primes the instance's lineage: install a fresh one
+        # first, so it primes this session's, not a stale tenant's.
+        lineage = ck.new_lineage(head=tip)
+        if ctx is None:
+            ctx = SessionContext(session_id=session_id, branch=branch,
+                                 slot=slot, lineage=lineage)
+        else:
+            ctx.lineage = lineage
+        ck.lineage = lineage
         state, stats = delta_checkout(ck, tip)
-        ck._head = tip
-        # checkout mutated the installed detector/cache in place and
-        # replaced the assignment-side attrs: pull those back into ctx.
-        ctx.prev_pods = ck._prev_pods
-        ctx.prev_graph = ck._prev_graph
-        ctx.pod_digests = ck._pod_digests
         ctx.last_used = _time.time()
         ctx.last_checkout_stats = stats
         self.sessions[ctx.session_id] = ctx
@@ -339,17 +277,21 @@ class SessionService:
         # be committing onto this branch's lineage or aliasing its pods.
         for ck in self.pool:
             ck.wait()
-        if self._bound[ctx.slot] == session_id:
-            # discard, don't capture: the state dies with the branch.
-            self._bound[ctx.slot] = None
-            ck = self.pool[ctx.slot]
-            ck._prev_pods = None
-            ck._prev_graph = None
-            ck._pod_digests = {}
-            if ck._graph_cache is not None:
-                ck._graph_cache.invalidate()
-            ck._head = None
-        stats = self.pool[0].evict_branch(ctx.branch)
+        lineage = ctx.lineage
+        if self.pool[ctx.slot].lineage is lineage:
+            # the lineage dies with the branch
+            lineage.forget(None)
+            if lineage.graph_cache is not None:
+                lineage.graph_cache.invalidate()
+        ck0 = self.pool[0]
+        stats = ck0.evict_branch(ctx.branch)
+        for tenant in self.sessions.values():
+            if tenant.lineage is ck0.lineage and tenant.lineage.head is None:
+                # evict_branch forgot the tenant's lineage, whose head was
+                # the evicted tip, as a session forked from it has until
+                # its first save: its own branch still holds that commit.
+                tenant.lineage.head = ck0.versions.branches.get(
+                    tenant.branch)
         if stats.deleted_pod_digests:
             # evict_branch pruned instance 0's thesaurus; the others
             # must not alias reclaimed digests either.
@@ -388,7 +330,7 @@ class SessionService:
                            bytes_reclaimed=self.bytes_reclaimed)
         union: Set[str] = set()
         for ctx in self.sessions.values():
-            tip = ctx.head
+            tip = ctx.lineage.head
             if tip is None:
                 continue
             digs = ck0.versions.pod_digests_of(tip, missing_ok=True)

@@ -4,7 +4,7 @@ A naive `load(time_id)` reads every pod of the target manifest from the
 store.  But when the caller is *switching* — branch hop, time travel —
 most pods of the target are byte-identical to pods of the state already
 in memory: pod digests are pure functions of content, so a target pod
-whose digest appears among the live pod digests (`Chipmink._pod_digests`)
+whose digest appears among the live pod digests (`Lineage.pod_digests`)
 can be re-serialized from the in-memory graph instead of read from
 storage.  Checkout therefore pays store reads only for the pods that
 actually differ (`StoreStats.read_bytes` scales with the branch delta,
@@ -57,8 +57,11 @@ The second half is **post-checkout priming**, which is what keeps the
   * the target's `PodAssignment` is *reconstructed* from the pod entries
     and memo page tables — not re-derived by a policy walk — so the next
     structurally-unchanged save reuses pods/locals/pages bit-identically
-    to the commit it branched from, and `_pod_digests` is primed straight
-    from the manifest digests.
+    to the commit it branched from, and the pod digests are primed
+    straight from the manifest digests.
+
+All of this is the instance's `Lineage` (``ck.lineage``), which the
+live state is read from and which the priming rewrites.
 
 `Chipmink.checkout` drains in-flight async saves before calling in here.
 """
@@ -215,7 +218,7 @@ def _demanded(graph: ObjectGraph, asg: PodAssignment, live_pods: Set[int],
     return out
 
 
-def _verified_live(ck: Any, live_graph: ObjectGraph,
+def _verified_live(lin: Any, live_graph: ObjectGraph,
                    live_asg: Optional[PodAssignment],
                    digests: Dict[int, str],
                    packed_target: Optional[Dict[str, bytes]],
@@ -250,16 +253,16 @@ def _verified_live(ck: Any, live_graph: ObjectGraph,
     cand_pids: Dict[int, int] = {}
     spec: Set[str] = set()
     if live_asg is not None:
-        by_digest = {d.hex(): pid for pid, d in ck._pod_digests.items()}
+        by_digest = {d.hex(): pid for pid, d in lin.pod_digests.items()}
         cand_pids = {pid: by_digest[d] for pid, d in digests.items()
                      if d in by_digest}
         for lp in _demanded(live_graph, live_asg, set(cand_pids.values()),
-                            reusable(ck.detector.export_table())):
+                            reusable(lin.detector.export_table())):
             for nid in live_asg.pods[lp].node_ids:
                 node = live_graph.node(nid)
                 if node.kind == CHUNK:
                     spec.add(node.key)
-    report = ck.detector.verify(live_graph, speculate=spec or None)
+    report = lin.detector.verify(live_graph, speculate=spec or None)
     stats.n_syncs += report.n_syncs
     stats.n_dirty_chunks = len(report.dirty)
     dirty_pods = ({live_asg.node_pod[live_graph.by_key[k]]
@@ -271,7 +274,7 @@ def _verified_live(ck: Any, live_graph: ObjectGraph,
 
 def delta_checkout(ck: Any, time_id: int) -> Tuple[Any, CheckoutStats]:
     """Restore the state of `time_id` into `ck`, delta-aware, and prime
-    the incremental save pipeline.  Returns (state, stats).
+    its lineage for an incremental next save.  Returns (state, stats).
 
     `ck` is a `Chipmink`; typed as Any to keep the core→version import
     one-directional (core lazily imports this module, never the reverse).
@@ -282,15 +285,16 @@ def delta_checkout(ck: Any, time_id: int) -> Tuple[Any, CheckoutStats]:
     memo, digests = open_manifest(manifest)
 
     stats = CheckoutStats(time_id=time_id, n_pods=len(digests))
-    live_graph = ck._prev_graph
-    live_asg = ck._prev_pods
+    lin = ck.lineage
+    live_graph = lin.prev_graph
+    live_asg = lin.prev_pods
     reuse_arrays: Dict[str, Any] = {}
     #: target pod id -> live pod id, for pods served from memory
     live_pids: Dict[int, int] = {}
     payload: Dict[str, bytes] = {}
     if live_graph is not None:
         reuse_arrays, live_pids, payload = _verified_live(
-            ck, live_graph, live_asg, digests, manifest.get("chunks"), stats)
+            lin, live_graph, live_asg, digests, manifest.get("chunks"), stats)
 
     reads0 = store.stats.read_bytes
     chain0 = store.stats.chain_reads
@@ -346,16 +350,16 @@ def delta_checkout(ck: Any, time_id: int) -> Tuple[Any, CheckoutStats]:
     # ---- post-checkout priming: make the next save() incremental -------
     t0 = _time.perf_counter()
     graph = build_graph(state, chunk_bytes=ck.chunk_bytes)
-    if ck._graph_cache is not None:
-        ck._graph_cache.adopt(graph)
+    if lin.graph_cache is not None:
+        lin.graph_cache.adopt(graph)
     packed = manifest.get("chunks")
     if packed:
-        ck.detector.import_table(unpack_digest_table(packed))
+        lin.detector.import_table(unpack_digest_table(packed))
         stats.digest_table_imported = True
     else:
         # pre-versioning manifest: one batched fingerprint pass over the
         # restored state rebuilds the table the manifest didn't carry.
-        ck.detector.detect(graph, None)
+        lin.detector.detect(graph, None)
 
     def entry_keys(pid: int):
         lp = live_pids.get(pid)
@@ -364,10 +368,10 @@ def delta_checkout(ck: Any, time_id: int) -> Tuple[Any, CheckoutStats]:
         return [live_graph.node(nid).key
                 for nid in live_asg.pods[lp].node_ids]
 
-    ck._prev_pods = _assignment_from_pods(graph, up, memo, manifest,
+    lin.prev_pods = _assignment_from_pods(graph, up, memo, manifest,
                                           entry_keys=entry_keys)
-    ck._prev_graph = graph
-    ck._pod_digests = {pid: bytes.fromhex(d) for pid, d in digests.items()}
+    lin.prev_graph = graph
+    lin.pod_digests = {pid: bytes.fromhex(d) for pid, d in digests.items()}
     stats.n_pods_live = stats.n_pods - stats.n_pods_fetched
     stats.t_prime = _time.perf_counter() - t0
     return state, stats

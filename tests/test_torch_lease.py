@@ -197,6 +197,12 @@ def test_lease_mechanics_match_reference(scenario):
 # Chipmink(multi_writer=True) in lockstep with the reference
 # ---------------------------------------------------------------------------
 
+def head(ck):
+    """A `Chipmink`'s head: the port keeps it in its lineage, the
+    reference as ``_head``."""
+    return ck.lineage.head if hasattr(ck, "lineage") else ck._head
+
+
 def _small_state(fill: float):
     return {"w": np.full((32, 8), np.float32(fill)),
             "b": np.arange(16, dtype=np.float32) + np.float32(fill),
@@ -362,7 +368,7 @@ def test_commit_racing_the_sweep_fence_forces_remark_like_reference():
                 peer.wait()
 
         sweep = ref_mark_and_sweep if name == "ref" else port_mark_and_sweep
-        stats = sweep(store, ck.versions, extra_roots=(ck._head,),
+        stats = sweep(store, ck.versions, extra_roots=(head(ck),),
                       leases=ck.leases, _after_mark=commit_now)
         assert stats.n_mark_restarts >= 1
         _assert_state(peer.load(time_id=committed[0]), 7.0)
@@ -453,7 +459,7 @@ def test_two_writer_threads_and_a_collector_lose_nothing(tmp_path):
     acked[base] = 0.0
     for i, ck in enumerate(writers):
         ck.versions.sync()
-        ck._head = base
+        ck.lineage.head = base
         ck.branch(f"w{i}")
 
     def write(i, ck):

@@ -90,6 +90,15 @@ def ref_svc(store=None, **kw):
                              use_kernel=False, **kw)
 
 
+def head(obj):
+    """The head of a `Chipmink` or a `SessionContext`: a port one keeps it
+    in its lineage, a reference one as a field (``_head``, ``head``)."""
+    lineage = getattr(obj, "lineage", None)
+    if lineage is not None:
+        return lineage.head
+    return obj._head if hasattr(obj, "_head") else obj.head
+
+
 def last_save_stats(svc, sid):
     ck = svc.pool[svc.sessions[sid].slot]
     return {k: ck.save_stats[-1].get(k) for k in SYNC_STATS}
@@ -133,7 +142,7 @@ class PairSessions:
 
     def _tip(self, sid):
         ctx = self.port.sessions.get(sid)
-        return ctx.head if ctx is not None else None
+        return ctx.lineage.head if ctx is not None else None
 
     def _saved(self):
         return sorted(s for s in self.states if self._tip(s) is not None)
@@ -211,8 +220,8 @@ class PairSessions:
         ck0.versions.sync()
         tip = ck0.versions.branches[branch]
         ck0.versions.delete_branch(branch)
-        extra = tuple(ck._head for ck in svc.pool
-                      if ck._head is not None and ck._head != tip)
+        extra = tuple(head(ck) for ck in svc.pool
+                      if head(ck) is not None and head(ck) != tip)
         oracle = sweep(svc.store, ck0.versions, extra_roots=extra,
                        dry_run=True)
         ck0.versions.create_branch(branch, at=tip, switch=False)
@@ -239,8 +248,8 @@ class PairSessions:
         assert real_p.n_commits_deleted == oracle.n_commits_deleted
         left = mark_and_sweep(
             self.port.store, self.port.pool[0].versions, dry_run=True,
-            extra_roots=tuple(ck._head for ck in self.port.pool
-                              if ck._head is not None))
+            extra_roots=tuple(ck.lineage.head for ck in self.port.pool
+                              if ck.lineage.head is not None))
         assert left.n_pods_deleted == 0 and left.n_commits_deleted == 0
         assert not self.port.pool[0].refcounts.rebuild()
         self.check()
@@ -363,6 +372,35 @@ def test_async_session_workload_matches_reference():
     assert wl.n_evicted + len(wl.snaps) >= 3
 
 
+def test_evicting_a_forks_source_keeps_the_fork_chained():
+    """A fork resumed on instance 0 before its first save has its
+    source's tip as its head, so evicting the source forgets the
+    instance's live state (the lineage they share): the fork keeps its
+    own branch's tip as its head and its next save chains to it, from
+    scratch, equal to the reference's."""
+    wl = PairSessions(np.random.default_rng(29), pool_size=1)
+    for svc in (wl.ref, wl.port):
+        svc.open_session("src")
+    wl.states["src"] = base_state(wl.rng, rows=wl.rows)
+    wl.save("src")
+    for svc in (wl.ref, wl.port):
+        svc.open_session("fork", from_ref=SESSION_NS + "src")
+    wl._resume("fork")
+    tip = wl._tip("fork")
+    assert wl.port.pool[0].lineage is wl.port.sessions["fork"].lineage
+    wl._wait()
+    assert results(wl.ref.evict_session("src")) == \
+        results(wl.port.evict_session("src"))
+    wl.states.pop("src")
+    lineage = wl.port.sessions["fork"].lineage
+    assert lineage.head == tip and lineage.prev_pods is None
+    wl.check()
+    tid = wl.save("fork")
+    assert wl.port.store.get_manifest(tid)["parent"] == tip
+    assert wl.port.pool[0].save_stats[-1]["n_pods_reused"] == 0
+    assert wl.ref.close() == [] and wl.port.close() == []
+
+
 # ---------------------------------------------------------------------------
 # the service tests of tests/test_sessions.py, on the port
 # ---------------------------------------------------------------------------
@@ -394,9 +432,7 @@ def test_session_lifecycle_and_branches():
     assert fleet_.logical_tip_bytes > 0 and fleet_.physical_tip_bytes > 0
     # every session digests on the service's device
     for ctx in svc.sessions.values():
-        det = ctx.detector if ctx.detector is not None \
-            else svc.pool[ctx.slot].detector
-        assert det.device == torch.device("cpu")
+        assert ctx.lineage.detector.device == torch.device("cpu")
 
 
 def test_open_rejects_duplicate_and_existing_branch():
@@ -408,7 +444,6 @@ def test_open_rejects_duplicate_and_existing_branch():
     with pytest.raises(ValueError, match="already open"):
         svc.open_session("a")
     del svc.sessions["a"]
-    svc._bound = [None] * len(svc.pool)
     with pytest.raises(ValueError, match="resume_session"):
         svc.open_session("a")
     assert tree_equal(from_torch(svc.resume_session("a")), from_torch(st))
@@ -448,7 +483,7 @@ def test_resume_migrates_across_service_instances():
     svc2 = port_svc(store)
     restored = svc2.resume_session("a")
     assert tree_equal(from_torch(restored), from_torch(st))
-    assert svc2.sessions["a"].head == tip
+    assert svc2.sessions["a"].lineage.head == tip
     restored["params"]["emb"][:2] += 0.25
     tid = svc2.save_session("a", restored)
     assert svc2.store.get_manifest(tid)["parent"] == tip
@@ -513,7 +548,7 @@ def test_interleaved_sessions_keep_incremental_pipelines():
     assert last["bytes_written"] < tip_bytes / 2
     tables = set()
     for sid, ctx in svc.sessions.items():
-        det = ck.detector if svc._bound[0] == sid else ctx.detector
+        det = ctx.lineage.detector
         assert det._dev_table is not None, sid
         tables.add(id(det._dev_table))
     assert len(tables) == 3
@@ -533,8 +568,9 @@ def test_evict_matches_mark_and_sweep_oracle():
     branch = SESSION_NS + "die"
     tip = ck0.versions.branches[branch]
     ck0.versions.delete_branch(branch)
-    extra = tuple(ck._head for ck in svc.pool
-                  if ck._head is not None and ck._head != tip)
+    extra = tuple(ck.lineage.head for ck in svc.pool
+                  if ck.lineage.head is not None
+                  and ck.lineage.head != tip)
     oracle = mark_and_sweep(svc.store, ck0.versions, extra_roots=extra,
                             dry_run=True)
     ck0.versions.create_branch(branch, at=tip, switch=False)
@@ -546,10 +582,12 @@ def test_evict_matches_mark_and_sweep_oracle():
     assert real.n_commits_deleted == oracle.n_commits_deleted
     assert dry.bytes_reclaimed == real.bytes_reclaimed
     left = mark_and_sweep(svc.store, ck0.versions, dry_run=True,
-                          extra_roots=tuple(ck._head for ck in svc.pool
-                                            if ck._head is not None))
+                          extra_roots=tuple(ck.lineage.head
+                                            for ck in svc.pool
+                                            if ck.lineage.head is not None))
     assert left.n_pods_deleted == 0 and left.n_commits_deleted == 0
-    assert svc.pool[0].load(time_id=svc.sessions["keep"].head) is not None
+    assert svc.pool[0].load(
+        time_id=svc.sessions["keep"].lineage.head) is not None
     assert not ck0.refcounts.rebuild()
 
 
@@ -657,7 +695,7 @@ def test_file_store_sessions_resume_across_packages(writer):
             r, back = ref_svc(RefFileStore(root)), as_np
         for sid, st in hosts.items():
             assert tree_equal(back(r.resume_session(sid)), st)
-            assert r.sessions[sid].head == tips[sid]
+            assert head(r.sessions[sid]) == tips[sid]
         # the resumed session's next save is incremental, in the reader
         st = hosts["a"]
         st["params"]["emb"][3] += np.float32(0.25)

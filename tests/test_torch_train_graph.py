@@ -322,13 +322,13 @@ def test_async_save_commits_the_state_at_save_time():
     ck = Chipmink(MemoryStore(), LGA(), chunk_bytes=1 << 16, async_mode=True,
                   device="cpu")
     release = threading.Event()
-    real_detect = ck.detector.detect
+    real_detect = ck.lineage.detector.detect
 
     def held(*args, **kw):
         assert release.wait(timeout=60)
         return real_detect(*args, **kw)
 
-    ck.detector.detect = held
+    ck.lineage.detector.detect = held
     graph(state, batches[0])
     want = tree_map(torch.clone, state)
     tid = ck.save({"params": state["params"], "opt": state["opt"],

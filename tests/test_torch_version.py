@@ -219,7 +219,8 @@ class PairWorkload:
             sorted(got_p.deleted_pod_digests)
         # what a full mark-and-sweep would still free: nothing
         left = mark_and_sweep(self.port.store, self.port.versions,
-                              extra_roots=(self.port._head,), dry_run=True)
+                              extra_roots=(self.port.lineage.head,),
+                              dry_run=True)
         assert left.n_pods_deleted == 0 and left.n_commits_deleted == 0
         assert not self.port.refcounts.rebuild()     # index == store scan
         self.check()
