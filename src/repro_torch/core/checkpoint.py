@@ -198,8 +198,8 @@ from .graph_cache import GraphCache, IncrementalBuildInfo
 from .lease import Lease, LeaseHeartbeat, LeaseLost, LeaseManager
 from .lga import LGA, PoddingPolicy
 from .podding import (PodAssignment, Unpodder, batched_chunk_fetch,
-                      fused_chunk_fetch, open_manifest, pod_graph,
-                      pod_structural_digest, serialize_pod)
+                      fused_chunk_fetch, open_manifest, pod_blob, pod_graph,
+                      pod_structural_digest)
 from .store import BaseStore, MemoryStore
 from .thesaurus import PodThesaurus
 from .trace import span
@@ -220,21 +220,27 @@ SPAN_ONLY_STATS = frozenset({
     "t_commit_manifest", "t_commit_refcounts", "t_commit_refs",
     "n_track_rows", "n_track_rows_built", "chunks_by_group",
     "dirty_by_group", "written_chunk_bytes", "clean_written_bytes",
-    "n_refcount_coded", "n_refcount_whole"})
+    "n_refcount_coded", "n_refcount_whole", "t_write_pack", "t_write_put",
+    "n_pods_serialized", "n_pods_from_layout"})
 
 #: entries per page of a pod's memo locals (a manifest's ``page_size``)
 MEMO_PAGE_SIZE = 1024
 
+#: blob bytes the write phase packs before it puts them (a batch ends
+#: with the pod that reaches it), so a save of many GB never holds all
+#: of its blobs at once
+WRITE_BATCH_BYTES = 64 << 20
+
 
 def written_chunk_bytes(graph: ObjectGraph, asg: PodAssignment,
-                        report: ChangeReport,
-                        stored: Sequence[Tuple[int, bool]]) -> Tuple[int, int]:
-    """(payload bytes of the chunks the stored pods hold, those of them
+                        report: ChangeReport, stored: Sequence[int],
+                        stored_delta: Sequence[int]) -> Tuple[int, int]:
+    """(payload bytes of the chunks the pods `stored` hold, those of them
     whose chunk is clean): the clean bytes a save drags into the pods its
-    dirty chunks make it write.  A pod stored as a delta holds its dirty
-    chunks alone.  Array work over the assignment's chunk table (laid
-    out once per assignment) and the detector's per-row dirty flags;
-    nothing here runs per chunk."""
+    dirty chunks make it write.  A pod stored as a delta (`stored_delta`)
+    holds its dirty chunks alone.  Array work over the assignment's chunk
+    table (laid out once per assignment) and the detector's per-row dirty
+    flags; nothing here runs per chunk."""
     if not stored or report.row_changed is None:
         return 0, 0
     if asg.chunk_table is None:
@@ -242,8 +248,8 @@ def written_chunk_bytes(graph: ObjectGraph, asg: PodAssignment,
     leaves, n_pods, pod, leaf, ci, size = asg.chunk_table
     # per pod id: 0 not stored, 1 stored whole, 2 stored as a delta
     how = np.zeros(n_pods, np.int8)
-    how[np.fromiter((p for p, _ in stored), np.int64, len(stored))] = 1
-    how[np.fromiter((p for p, d in stored if d), np.int64)] = 2
+    how[np.fromiter(stored, np.int64, len(stored))] = 1
+    how[np.fromiter(stored_delta, np.int64, len(stored_delta))] = 2
     at = how[pod]
     sel = at > 0
     start = np.fromiter((report.leaf_rows.get(k, -1) for k in leaves),
@@ -699,6 +705,57 @@ class Chipmink:
                     out.add(node.key)
         return out or None
 
+    def _delta_of(self, pod, graph: ObjectGraph, data: bytes,
+                  base_hex: str, dirty, scalar_changed: Set[str]
+                  ) -> Optional[Tuple[bytes, int]]:
+        """(delta blob, chain depth) when `data`, the blob of a pod whose
+        previous blob was `base_hex`, is to be stored as a delta of that
+        blob; None when it is to be stored whole."""
+        try:
+            # depth the new pod would sit at if chained to base; a
+            # missing/broken/cyclic base chain disqualifies.
+            depth = self.store.pod_chain_depth(base_hex) + 1
+        except (FileNotFoundError, ValueError):
+            return None
+        if depth > self.delta_policy.max_chain_depth:
+            return None
+        changed_locals = [
+            i for i, nid in enumerate(pod.node_ids)
+            if ((n := graph.node(nid)).kind == CHUNK and n.key in dirty)
+            or n.key in scalar_changed]
+        cand = encode_pod_delta(data, base_hex, changed_locals)
+        if not self.delta_policy.admit(len(cand), len(data), depth):
+            return None
+        return cand, depth
+
+    def _put_batch(self, batch: List[tuple], blobs: List[bytes],
+                   deltas: Dict[int, Tuple[str, int]]
+                   ) -> Tuple[List[bool], int]:
+        """Put a batch of packed pods (`BaseStore.put_pods`; the pods of
+        `batch`, entries of `to_write`, with their `blobs`, those indexed
+        in `deltas` as delta blobs) and enter each pod that landed in the
+        thesaurus, in order.  A transient error retries from the first
+        pod that did not land, which gets the retries a pod put alone
+        would get; a crash leaves thesaurus entries for the landed pods
+        alone.  Returns (each pod's put result, retries)."""
+        landed: List[bool] = []
+
+        def put_rest() -> None:
+            with self.saver.l_ns:
+                start = len(landed)
+                try:
+                    self.store.put_pods(
+                        zip((e[2] for e in batch[start:]), blobs[start:],
+                            (j in deltas for j in range(start, len(batch)))),
+                        landed)
+                finally:
+                    self.thesaurus.insert_many(
+                        (e[3], e[2]) for e in batch[start:len(landed)])
+
+        _, n_retries = call_with_retries(put_rest, self.retry_policy,
+                                         progress=landed.__len__)
+        return landed, n_retries
+
     def _save_body_inner(self, lin, stats, graph, ginfo, accessed_vars,
                          touched_prefixes, readonly_paths, parent,
                          branch=None) -> None:
@@ -843,19 +900,22 @@ class Chipmink:
             gather_nodes = [graph.node(nid) for _, pod, _, _ in to_write
                             for nid in pod.node_ids]
             if lin.detector.fused:
-                chunk_bytes_of, gather_syncs = fused_chunk_fetch(
+                chunk_bytes, gather_syncs = fused_chunk_fetch(
                     graph, gather_nodes, report.payload)
                 stats["n_corrective_syncs"] = gather_syncs
             else:
-                chunk_bytes_of, gather_syncs = batched_chunk_fetch(
+                chunk_bytes, gather_syncs = batched_chunk_fetch(
                     graph, gather_nodes)
         stats["n_gather_syncs"] = gather_syncs
 
-        # write phase: serialize + store from the prefetched host bytes.
-        # Each store write retries transient I/O errors with backoff
-        # (retry_policy); puts are idempotent — a pod is content-addressed
-        # and the rename is atomic — so a retried step never double-
-        # applies.  InjectedCrash (a BaseException) punches through.
+        # write phase: pack each written pod's blob (from the layout its
+        # assignment keeps, `pod_blob`) and its delta candidate, then put
+        # them in batches of at most WRITE_BATCH_BYTES.  Each batch's puts
+        # retry transient I/O errors with backoff (retry_policy), resuming
+        # after the last pod that landed; puts are idempotent — a pod is
+        # content-addressed and the rename is atomic — so a retried step
+        # never double-applies.  InjectedCrash (a BaseException) punches
+        # through, and only the pods that landed reach the thesaurus.
         with span("save.write", stats, "t_write"):
             n_retries = 0
             # delta-chain eligibility for this save: only the reuse path
@@ -866,69 +926,82 @@ class Chipmink:
                               and touched_pods is not None)
             scalar_changed = (set(ginfo.scalar_changed_keys) if ginfo
                               else set())
-            n_delta_pods = 0
             chain_depth_max = 0
-            t_delta = 0.0
-            stored: List[Tuple[int, bool]] = []   # (pid, as a delta)
-            for pid, pod, dig_hex, digest in to_write:
-                data = serialize_pod(pod, graph, asg, chunk_bytes_of)
-
-                delta_blob = base_hex = None
-                delta_depth = 0
-                base = prev_pod_digests.get(pid) if delta_eligible else None
-                if base is not None and base != digest:
-                    with span("save.write.delta") as sd:
-                        cand_hex = base.hex()
-                        try:
-                            # depth the new pod would sit at if chained to
-                            # base; a missing/broken/cyclic base chain
-                            # disqualifies.
-                            depth = self.store.pod_chain_depth(cand_hex) + 1
-                        except (FileNotFoundError, ValueError):
-                            depth = None
-                        if (depth is not None and depth
-                                <= self.delta_policy.max_chain_depth):
-                            changed_locals = [
-                                i for i, nid in enumerate(pod.node_ids)
-                                if ((n := graph.node(nid)).kind == CHUNK
-                                    and n.key in report.dirty)
-                                or n.key in scalar_changed]
-                            cand = encode_pod_delta(data, cand_hex,
-                                                    changed_locals)
-                            if self.delta_policy.admit(len(cand), len(data),
-                                                       depth):
-                                delta_blob, base_hex, delta_depth = \
-                                    cand, cand_hex, depth
-                    t_delta += sd.seconds
-
-                def put_one(dig_hex=dig_hex, data=data, digest=digest,
-                            delta_blob=delta_blob) -> bool:
-                    with self.saver.l_ns:
-                        if delta_blob is not None:
-                            fresh = self.store.put_pod_delta(dig_hex,
-                                                             delta_blob)
-                        else:
-                            fresh = self.store.put_pod(dig_hex, data)
-                        self.thesaurus.insert(digest, dig_hex)
-                        return fresh
-
-                fresh, nr = call_with_retries(put_one, self.retry_policy)
+            t_delta = t_pack = t_put = 0.0
+            n_serialized = n_from_layout = 0
+            # pods stored, and those of them stored as deltas
+            stored: List[int] = []
+            stored_delta: List[int] = []
+            at = 0
+            while at < len(to_write):
+                # the batch's entries of `to_write`, their blobs (a delta
+                # blob where one is admitted), and (base hex, chain depth)
+                # by index of each pod stored as a delta.  Parallel lists,
+                # so that packing allocates no container a pod for the
+                # cyclic collector to trace.
+                batch: List[tuple] = []
+                blobs: List[bytes] = []
+                deltas: Dict[int, Tuple[str, int]] = {}
+                packed: Set[str] = set()          # their digests, for deltas
+                with span("save.write.pack") as sp:
+                    n_bytes = 0
+                    while at < len(to_write) and n_bytes < WRITE_BATCH_BYTES:
+                        entry = to_write[at]
+                        pid, pod, dig_hex, digest = entry
+                        base = (prev_pod_digests.get(pid) if delta_eligible
+                                else None)
+                        base_hex = (base.hex() if base not in (None, digest)
+                                    else None)
+                        if base_hex in packed:
+                            # its delta base is a pod of this batch: put
+                            # the batch first, so the base is in the store
+                            break
+                        at += 1
+                        data, kept = pod_blob(pod, graph, asg, chunk_bytes)
+                        n_serialized += 1
+                        n_from_layout += kept
+                        n_bytes += len(data)
+                        if base_hex is not None:
+                            with span("save.write.delta") as sd:
+                                delta = self._delta_of(
+                                    pod, graph, data, base_hex, report.dirty,
+                                    scalar_changed)
+                            t_delta += sd.seconds
+                            if delta is not None:
+                                data = delta[0]
+                                deltas[len(blobs)] = (base_hex, delta[1])
+                        batch.append(entry)
+                        blobs.append(data)
+                        if delta_eligible:
+                            packed.add(dig_hex)
+                t_pack += sp.seconds
+                with span("save.write.put") as sp:
+                    landed, nr = self._put_batch(batch, blobs, deltas)
+                t_put += sp.seconds
                 n_retries += nr
-                if fresh:
+                for j, fresh in enumerate(landed):
+                    if not fresh:
+                        aliased += 1              # disk-level synonym
+                        continue
                     written += 1
-                    stored.append((pid, delta_blob is not None))
-                    if delta_blob is not None:
+                    pid = batch[j][0]
+                    stored.append(pid)
+                    if j in deltas:
                         # the manifest records chain structure only for
-                        # pods this commit actually stored in delta form (a
-                        # dedup hit keeps whatever form the digest already
-                        # has).
+                        # pods this commit actually stored in delta form
+                        # (a dedup hit keeps whatever form the digest
+                        # already has).
+                        base_hex, depth = deltas[j]
                         pods_meta[pid]["delta_of"] = base_hex
-                        n_delta_pods += 1
-                        chain_depth_max = max(chain_depth_max, delta_depth)
-                else:
-                    aliased += 1              # disk-level synonym
+                        stored_delta.append(pid)
+                        chain_depth_max = max(chain_depth_max, depth)
+            n_delta_pods = len(stored_delta)
+            stats["t_write_pack"] = t_pack
+            stats["t_write_put"] = t_put
+            stats["n_pods_serialized"] = n_serialized
+            stats["n_pods_from_layout"] = n_from_layout
             stats["written_chunk_bytes"], stats["clean_written_bytes"] = \
-                written_chunk_bytes(graph, asg, report, stored)
+                written_chunk_bytes(graph, asg, report, stored, stored_delta)
         stats["n_retries"] = n_retries
         stats["pods_written"] = written
         stats["pods_aliased"] = aliased

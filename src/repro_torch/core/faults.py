@@ -544,16 +544,26 @@ class RetryPolicy:
 
 
 def call_with_retries(fn: Callable[[], Any], policy: RetryPolicy,
-                      sleep: Callable[[float], None] = time.sleep
+                      sleep: Callable[[float], None] = time.sleep,
+                      progress: Optional[Callable[[], int]] = None
                       ) -> Tuple[Any, int]:
     """Run `fn`, retrying per `policy`.  Returns ``(result, n_retries)``;
-    re-raises the last error once retries are exhausted."""
-    attempt = 0
+    re-raises the last error once retries are exhausted.
+
+    `progress`, for an `fn` that resumes where its last call stopped (a
+    batch of puts), counts the steps done so far: a failure after a step
+    landed starts the policy over, so each step gets the retries and
+    delays it would get on its own."""
+    attempt = n_retries = 0
+    mark = progress() if progress is not None else 0
     while True:
         try:
-            return fn(), attempt
+            return fn(), n_retries
         except policy.retry_on:
+            if progress is not None and progress() != mark:
+                mark, attempt = progress(), 0     # a step landed
             if attempt >= policy.max_retries:
                 raise
             sleep(policy.delay(attempt))
             attempt += 1
+            n_retries += 1

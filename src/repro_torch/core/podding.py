@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Optional, Sequence, Set, Tuple)
 
 import msgpack
 import numpy as np
@@ -53,6 +54,11 @@ class PodAssignment:
     #: laid out when first needed (`checkpoint.written_chunk_bytes`)
     chunk_table: Optional[Tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
+    #: pod id -> the static bytes of its blob (`PodLayout`; None for a
+    #: pod holding a scalar), laid out when the pod is first written
+    #: (`pod_blob`)
+    blob_layout: Optional[Dict[int, Optional["PodLayout"]]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
 
     def pod_of_key(self, graph: ObjectGraph, key: str) -> int:
         return self.node_pod[graph.by_key[key]]
@@ -209,13 +215,13 @@ def default_chunk_bytes(graph: ObjectGraph) -> Callable[[Node], bytes]:
 
 
 def batched_chunk_fetch(graph: ObjectGraph, nodes: Sequence[Node]
-                        ) -> Tuple[Callable[[Node], bytes], int]:
+                        ) -> Tuple[Dict[str, bytes], int]:
     """Gather payload bytes of every CHUNK node in `nodes` at once.
 
     Host (numpy) chunks are sliced directly; all tensor chunk slices are
     fetched with a **single** `fetch_to_host` over the full dirty-chunk
     set — replacing a per-chunk blocking copy in the serializer.  Returns
-    (lookup fn for serialize_pod, number of device syncs issued: 0 or 1).
+    ({chunk key: bytes}, number of device syncs issued: 0 or 1).
     """
     host_bytes: Dict[str, bytes] = {}
     dev_keys: List[str] = []
@@ -236,33 +242,27 @@ def batched_chunk_fetch(graph: ObjectGraph, nodes: Sequence[Node]
         n_syncs = 1
         for key, raw in zip(dev_keys, fetched):
             host_bytes[key] = raw.tobytes()
-
-    def get(node: Node) -> bytes:
-        return host_bytes[node.key]
-
-    return get, n_syncs
+    return host_bytes, n_syncs
 
 
 def fused_chunk_fetch(graph: ObjectGraph, nodes: Sequence[Node],
                       payload: Dict[str, bytes]
-                      ) -> Tuple[Callable[[Node], bytes], int]:
+                      ) -> Tuple[Dict[str, bytes], int]:
     """Payload-first gather for the fused single-sync save.
 
     `payload` holds the byte-exact chunk payloads that were speculatively
     compacted into the digest fetch (`ChangeReport.payload`) — those cost
     nothing here.  Only chunks *missing* from the payload (speculation
     misses, host-numpy chunks) fall through to one corrective
-    `batched_chunk_fetch`.  Returns (lookup fn, corrective sync count:
-    0 when speculation covered every device chunk, else 1).
+    `batched_chunk_fetch`.  Returns ({chunk key: bytes}: `payload` itself
+    when it covered every chunk, else a copy with the corrective fetch's
+    bytes added; corrective sync count: 0 or 1).
     """
     missing = [n for n in nodes if n.kind == CHUNK and n.key not in payload]
+    if not missing:
+        return payload, 0
     corrective, n_syncs = batched_chunk_fetch(graph, missing)
-
-    def get(node: Node) -> bytes:
-        b = payload.get(node.key)
-        return b if b is not None else corrective(node)
-
-    return get, n_syncs
+    return {**payload, **corrective}, n_syncs
 
 
 def serialize_pod(pod: Pod, graph: ObjectGraph, asg: PodAssignment,
@@ -275,6 +275,104 @@ def serialize_pod(pod: Pod, graph: ObjectGraph, asg: PodAssignment,
     ]
     payload = {"pid": pod.pod_id, "e": entries}
     return msgpack.packb(payload, use_bin_type=True)
+
+
+class PodLayout(NamedTuple):
+    """A pod's blob less its chunk bytes: ``segs[0] + d_0 + segs[1] + d_1
+    + ... + segs[-1]`` is `serialize_pod`'s output for chunk bytes d_i of
+    the chunks `keys`, each `sizes[i]` bytes long (the length its bin
+    header was packed for).  Everything else in the blob (the framing,
+    every entry's key, kind, refs and meta) stays fixed while the
+    assignment is reused, since a reused assignment means no node was
+    added, removed, re-shaped or re-typed.  Its three tuples hold bytes,
+    strings and ints, so the cyclic collector traces one object a pod."""
+
+    segs: Tuple[bytes, ...]
+    keys: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def fill(self, chunk_bytes: Mapping[str, bytes]) -> Optional[bytes]:
+        """The blob, or None when a chunk's bytes are not the length its
+        header was packed for."""
+        segs, keys, sizes = self
+        parts = [segs[0]]
+        for i, key in enumerate(keys):
+            d = chunk_bytes[key]
+            if len(d) != sizes[i]:
+                return None
+            parts.append(d)
+            parts.append(segs[i + 1])
+        return b"".join(parts)
+
+
+def _bin_header(n: int) -> bytes:
+    """msgpack's bin header for `n` bytes, as `packb` writes it."""
+    if n < 1 << 8:
+        return b"\xc4" + n.to_bytes(1, "big")
+    if n < 1 << 16:
+        return b"\xc5" + n.to_bytes(2, "big")
+    return b"\xc6" + n.to_bytes(4, "big")
+
+
+#: an empty bin (the placeholder packed where a chunk's bytes go)
+_EMPTY_BIN = _bin_header(0)
+
+
+def pod_layout(pod: Pod, graph: ObjectGraph, asg: PodAssignment
+               ) -> Optional[PodLayout]:
+    """The pod's `PodLayout`, or None when it holds a SCALAR entry (whose
+    value may change while the assignment is reused)."""
+    packer = msgpack.Packer(use_bin_type=True)
+    head = packer.pack_map_header(2) + packer.pack("pid") \
+        + packer.pack(pod.pod_id) + packer.pack("e") \
+        + packer.pack_array_header(len(pod.node_ids))
+    segs: List[bytes] = []
+    keys: List[str] = []
+    sizes: List[int] = []
+    cur = [head]
+    for nid in pod.node_ids:
+        node = graph.node(nid)
+        if node.kind == SCALAR:
+            return None
+        packed = packer.pack(_entry_for_node(node, graph, asg,
+                                             lambda _: b""))
+        if node.kind != CHUNK:
+            cur.append(packed)
+            continue
+        # a chunk entry ends with its "d" value: the empty bin
+        cur.append(packed[:-len(_EMPTY_BIN)])
+        cur.append(_bin_header(node.size))
+        segs.append(b"".join(cur))
+        keys.append(node.key)
+        sizes.append(node.size)
+        cur = []
+    segs.append(b"".join(cur))
+    return PodLayout(tuple(segs), tuple(keys), tuple(sizes))
+
+
+def pod_blob(pod: Pod, graph: ObjectGraph, asg: PodAssignment,
+             chunk_bytes: Mapping[str, bytes]) -> Tuple[bytes, bool]:
+    """The pod's blob, as `serialize_pod` would pack it from
+    `chunk_bytes` (chunk key -> bytes), and whether it came from a layout
+    laid out by an earlier save of the assignment.  A pod written for the
+    first time under the assignment gets its layout here; a pod holding
+    a scalar, or a chunk of another length than its header, is packed by
+    `serialize_pod`."""
+    layouts = asg.blob_layout
+    if layouts is None:
+        layouts = asg.blob_layout = {}
+    pid = pod.pod_id
+    if pid in layouts:
+        layout, kept = layouts[pid], True
+    else:
+        layout = layouts[pid] = pod_layout(pod, graph, asg)
+        kept = False
+    if layout is not None:
+        data = layout.fill(chunk_bytes)
+        if data is not None:
+            return data, kept
+    return serialize_pod(pod, graph, asg,
+                         lambda node: chunk_bytes[node.key]), False
 
 
 def pod_structural_digest(pod: Pod, graph: ObjectGraph, asg: PodAssignment,

@@ -70,7 +70,7 @@ import os
 import threading
 import time
 import zlib
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import msgpack
 
@@ -270,6 +270,21 @@ class BaseStore:
             self.stats.delta_pods_written += 1
             self.stats.delta_bytes_written += len(blob)
             return True
+
+    def put_pods(self, items: Iterable[Tuple[str, bytes, bool]],
+                 out: Optional[List[bool]] = None) -> List[bool]:
+        """Put a batch of pods: each item is (digest, bytes, as a delta),
+        put as `put_pod_delta` puts a delta and `put_pod` a whole blob.
+        Appends each pod's result (True if written) to `out` as the pod
+        lands, so a caller that catches an error mid-batch knows how many
+        landed; returns `out`.  This one calls `put_pod` /
+        `put_pod_delta` per pod, so a wrapper that gates those (a
+        `FaultyStore`) sees every pod."""
+        out = [] if out is None else out
+        for digest_hex, data, delta in items:
+            out.append(self.put_pod_delta(digest_hex, data) if delta
+                       else self.put_pod(digest_hex, data))
+        return out
 
     def _resolve_full_locked(self, digest_hex: str):
         """Resolve a digest to its full pod bytes, walking the delta
@@ -537,6 +552,40 @@ class MemoryStore(BaseStore):
 
     def list_delta_pods(self) -> List[str]:
         return sorted(self._delta_pods)
+
+    def put_pods(self, items: Iterable[Tuple[str, bytes, bool]],
+                 out: Optional[List[bool]] = None) -> List[bool]:
+        """`BaseStore.put_pods` under one hold of the lock, with the same
+        dedup and the same stats."""
+        out = [] if out is None else out
+        pods, deltas = self._pods, self._delta_pods
+        encode = self._encode_blob if self.compress else None
+        n = n_bytes = n_delta = n_delta_bytes = n_dedup = 0
+        try:
+            with self._lock:
+                for digest_hex, data, delta in items:
+                    if digest_hex in pods or digest_hex in deltas:
+                        n_dedup += 1
+                        out.append(False)
+                        continue
+                    blob = data if encode is None else encode(data)
+                    if delta:
+                        deltas[digest_hex] = blob
+                        n_delta += 1
+                        n_delta_bytes += len(blob)
+                    else:
+                        pods[digest_hex] = blob
+                    n += 1
+                    n_bytes += len(blob)
+                    out.append(True)
+        finally:
+            st = self.stats
+            st.pods_deduped += n_dedup
+            st.pods_written += n
+            st.pod_bytes_written += n_bytes
+            st.delta_pods_written += n_delta
+            st.delta_bytes_written += n_delta_bytes
+        return out
 
     def _put_manifest_raw(self, time_id: int, blob: bytes) -> None:
         self._manifests[time_id] = blob

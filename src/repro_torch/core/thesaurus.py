@@ -9,7 +9,7 @@ out eviction policy for its simplicity").  Capacity is expressed in bytes
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 ENTRY_BYTES = 16  # 128-bit digest
 
@@ -35,16 +35,21 @@ class PodThesaurus:
         return ref
 
     def insert(self, digest: bytes, pod_ref: str) -> None:
+        self.insert_many(((digest, pod_ref),))
+
+    def insert_many(self, pairs: Iterable[Tuple[bytes, str]]) -> None:
+        """Enter each (digest, pod reference) in order: a digest already
+        entered takes the new reference in place; a new one first evicts
+        the last one entered (LIFO) while the thesaurus is full."""
         if self.max_entries == 0:
             return
-        if digest in self._map:
-            self._map[digest] = pod_ref
-            return
-        while len(self._map) >= self.max_entries and self._stack:
-            evicted = self._stack.pop()          # LIFO
-            self._map.pop(evicted, None)
-        self._map[digest] = pod_ref
-        self._stack.append(digest)
+        entries, stack = self._map, self._stack
+        for digest, pod_ref in pairs:
+            if digest not in entries:
+                while len(entries) >= self.max_entries and stack:
+                    entries.pop(stack.pop(), None)        # LIFO
+                stack.append(digest)
+            entries[digest] = pod_ref
 
     def prune(self, dead_refs) -> int:
         """Drop every entry whose pod reference is in `dead_refs`.

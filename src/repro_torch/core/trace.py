@@ -54,7 +54,9 @@ them)::
           save.intent             t_intent      (multi-writer only)
           save.gather             t_gather
           save.write              t_write
-            save.write.delta      t_delta_encode (summed over pods)
+            save.write.pack       t_write_pack  (summed over batches)
+              save.write.delta    t_delta_encode (summed over pods)
+            save.write.put        t_write_put   (summed over batches)
           save.commit             t_commit
             save.commit.manifest  t_commit_manifest
             save.commit.refcounts t_commit_refcounts

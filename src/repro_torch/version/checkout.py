@@ -309,17 +309,17 @@ def delta_checkout(ck: Any, time_id: int) -> Tuple[Any, CheckoutStats]:
     _live_fetch: Dict[str, Any] = {}
 
     def live_chunk_bytes(node) -> bytes:
-        fn = _live_fetch.get("fn")
-        if fn is None:
+        got = _live_fetch.get("bytes")
+        if got is None:
             nodes = [live_graph.node(nid)
                      for lp in _demanded(live_graph, live_asg,
                                          set(live_pids.values()),
                                          reuse_arrays)
                      for nid in live_asg.pods[lp].node_ids]
-            fn, n = fused_chunk_fetch(live_graph, nodes, payload)
+            got, n = fused_chunk_fetch(live_graph, nodes, payload)
             stats.n_syncs += n
-            _live_fetch["fn"] = fn
-        return fn(node)
+            _live_fetch["bytes"] = got
+        return got[node.key]
 
     def fetch(pod_id: int) -> bytes:
         live_pid = live_pids.get(pod_id)

@@ -356,3 +356,122 @@ def test_faulty_store_faults_match_reference():
         seen.append(fs.total_bytes())
         out[name] = seen
     assert out["ref"] == out["port"]
+
+
+# ---------------------------------------------------------------------------
+# the write phase's batched puts
+# ---------------------------------------------------------------------------
+
+def _mutate_all(state, i):
+    """Every leaf changes: each chunk's pod is written."""
+    state = _mutate(state, i)
+    state["params"]["emb"] = state["params"]["emb"] + np.float32(0.25)
+    return state
+
+
+def _batch_ck(name, store, **kw):
+    """1 KiB chunks, one pod a chunk: a save's ~35 pods go out in one
+    batch; deltas are admitted whatever their size, so each dirty pod
+    of a sparse save is stored as one."""
+    pkg = PKGS[name]
+    return _ck(name, store, chunk_bytes=1 << 10, delta_chains=True,
+               delta_policy=pkg.DeltaPolicy(max_delta_ratio=2.0),
+               retry_policy=pkg.RetryPolicy(backoff_s=0.0), **kw)
+
+
+def test_transient_errors_mid_batch_count_as_pod_by_pod_puts():
+    """Transient errors at two pods of one batch, three in a row each:
+    more than the policy's three retries in all, as many as each pod
+    gets on its own.  The save lands as the reference's does, pod by
+    pod, and as a save without faults does: the same pods written and
+    aliased, the same stored chunk bytes, the same manifests, deltas
+    and ``delta_of`` links, and the same count of calls at each point."""
+    out = {}
+    for name, pkg in [*PKGS.items(), ("clean", P)]:
+        fs = pkg.FaultyStore(pkg.MemoryStore())
+        ck = _batch_ck(name if name != "clean" else "port", fs)
+        s = _mk_state(np.random.default_rng(8))
+        ck.save(_conv("port" if name == "clean" else name, s))
+        s = _mutate_all(s, 1)
+        fs.clear()
+        if name != "clean":
+            fs.transient("put_pod_delta", times=3, skip=2)
+            fs.transient("put_pod_delta", times=3, skip=11)
+        tid = ck.save(_conv("port" if name == "clean" else name, s))
+        st = ck.save_stats[-1]
+        keep = ("pods_written", "pods_aliased", "n_delta_pods",
+                "chain_depth_max", "written_chunk_bytes",
+                "clean_written_bytes")
+        out[name] = ({k: st.get(k) for k in keep}, st["n_retries"],
+                     fs.get_manifest(tid)["pods"], dict(fs.calls), fs)
+        assert tree_equal(_np(name if name != "clean" else "port",
+                              ck.load(time_id=tid)), snapshot_state(s))
+    (port, n_port, pods, calls, store) = out["port"]
+    (clean, n_clean, clean_pods, clean_calls, _) = out["clean"]
+    assert port == clean and pods == clean_pods and n_clean == 0
+    assert port["n_delta_pods"] > 10
+    assert any("delta_of" in m for m in pods.values())
+    (ref, n_ref, ref_pods, ref_calls, ref_store) = out["ref"]
+    assert n_port == n_ref == 6
+    assert pods == ref_pods and calls == ref_calls
+    assert {k: port[k] for k in ("pods_written", "pods_aliased",
+                                 "n_delta_pods", "chain_depth_max")} == \
+        {k: ref[k] for k in ("pods_written", "pods_aliased",
+                             "n_delta_pods", "chain_depth_max")}
+    assert calls["put_pod_delta"] == clean_calls["put_pod_delta"] + 6
+    assert_stores_equal(ref_store.inner, store.inner)
+
+
+@pytest.mark.parametrize("when", ["before", "after"])
+def test_a_crash_mid_batch_enters_only_landed_pods(tmp_path, when):
+    """A crash at the fourth put of a batch: the thesaurus names the
+    three pods that landed before it and no other new pod (a pod that
+    landed as the process died was never acknowledged).  The next save
+    writes the rest, the store stays readable and fsck finds it clean."""
+    control = _ck("port", P.MemoryStore(), chunk_bytes=1 << 10)
+    fs = P.FaultyStore(P.FileStore(str(tmp_path)))
+    ck = _ck("port", fs, chunk_bytes=1 << 10, fsck_on_open=False)
+    s = _mk_state(np.random.default_rng(9))
+    for c in (control, ck):
+        c.save(_conv("port", s))
+    s = _mutate_all(s, 1)
+    control.save(_conv("port", s))
+    n_pods = control.save_stats[-1]["pods_written"]
+    before = set(fs.list_pods())
+    fs.clear()
+    fs.crash_at("put_pod", when=when, skip=3)
+    with pytest.raises(P.InjectedCrash):
+        ck.save(_conv("port", s))
+    new = set(fs.list_pods()) - before
+    entered = set(ck.thesaurus._map.values())
+    assert entered <= set(fs.list_pods())
+    assert len(new) == 3 + (when == "after") and len(entered & new) == 3
+    fs.clear()
+    tid = ck.save(_conv("port", s))
+    st = ck.save_stats[-1]
+    assert st["pods_written"] == n_pods - len(new)
+    assert set(fs.list_pods()) == set(control.store.list_pods())
+    assert tree_equal(_np("port", ck.load(time_id=tid)), snapshot_state(s))
+    assert port_fsck(fs, repair=False, deep=True).clean
+    assert not _no_debris(str(tmp_path))
+
+
+@pytest.mark.parametrize("skip", [0, 4, 9])
+def test_put_pod_fault_points_count_pods_as_the_reference(skip):
+    """`put_pod`'s calls are numbered pod by pod within a batch, as the
+    reference numbers them: a crash at the same call kills the same pod
+    and leaves the same pods in both stores."""
+    out = {}
+    for name, pkg in PKGS.items():
+        fs = pkg.FaultyStore(pkg.MemoryStore())
+        ck = _ck(name, fs, chunk_bytes=1 << 10)
+        s = _mk_state(np.random.default_rng(10))
+        ck.save(_conv(name, s))
+        s = _mutate_all(s, 1)
+        fs.clear()
+        fs.crash_at("put_pod", skip=skip)
+        with pytest.raises(pkg.InjectedCrash):
+            ck.save(_conv(name, s))
+        out[name] = (dict(fs.calls), sorted(fs.list_pods()))
+    assert out["ref"] == out["port"]
+    assert out["port"][0]["put_pod"] == skip + 1

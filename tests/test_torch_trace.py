@@ -24,6 +24,9 @@ KEYS = {"save.graph": "t_graph", "save.slot_wait": "t_slot_wait",
         "save.commit.manifest": "t_commit_manifest",
         "save.commit.refcounts": "t_commit_refcounts",
         "save.commit.refs": "t_commit_refs"}
+#: span name -> the key of `save_stats` that sums its spans' durations
+#: (one span a batch of the write phase)
+SUMMED = {"save.write.pack": "t_write_pack", "save.write.put": "t_write_put"}
 BODY = ["save.avf", "save.digest", "save.track", "save.podding",
         "save.decide", "save.gather", "save.write", "save.commit"]
 COMMIT = ["save.commit.manifest", "save.commit.refs"]
@@ -127,11 +130,16 @@ def test_each_stage_key_is_its_spans_duration(tracing, async_mode):
                 if r["time_id"] == st["time_id"]}
         want = {k for n, k in KEYS.items() if n in mine}
         assert want == {k for k in st if k.startswith("t_")} - {
-            "t_body_cpu", "t_delta_encode"}
+            "t_body_cpu", "t_delta_encode", *SUMMED.values()}
         for name, key in KEYS.items():
             if name in mine:
                 assert st[key] == pytest.approx(dur(mine[name]) * 1e-9,
                                                 rel=1e-9, abs=1e-9), key
+        for name, key in SUMMED.items():
+            ns = [dur(r) for r in records
+                  if r["time_id"] == st["time_id"] and r["name"] == name]
+            assert st[key] == pytest.approx(sum(ns) * 1e-9,
+                                                   rel=1e-9, abs=1e-9), key
         body = mine["save.body"]
         assert st["t_body_cpu"] == pytest.approx(body["cpu_ns"] * 1e-9)
         assert 0 < st["t_body_cpu"]
